@@ -5,23 +5,38 @@
 
 Phases, each fatal on failure:
   1. card: name and power limit (nvidia-smi), torch/CUDA versions;
-  2. build: nvcc compiles every tpu_ac_torch/csrc/*.cu for sm_90a;
-  3. kernels: each kernel against its plain PyTorch version on the card,
-     symmetric and rectangular x f32/bf16c/bf16, at the main path's widths
-     (P=784, D=4096) and at ragged shapes; then the timings at the main
-     path's shapes beside the bound, the plain version and a cdist
-     yardstick;
+  2. build: nvcc compiles every tpu_ac_torch/csrc/*.cu for sm_90a, one
+     process per source, all at once;
+  3. kernels: each kernel against its plain PyTorch version on the card.
+     min_dists: symmetric and rectangular x f32/bf16c/bf16, at the main
+     path's widths (P=784, D=4096) and at ragged shapes.  flash_attention:
+     bf16 and f32 on the strided q/k/v views of a packed qkv, at the main
+     path's [8, 12, 785, 64], at ragged S = 17, 26, 130, and at S=256 with
+     a segment mask over the last 56 keys;
   4. main path: a synthetic MVTec tree of two categories (84 and 168 test
      images, 256 px sources) through tpu_ac_torch.cli.main with the CLI
      defaults (ViT-B/8 full width on its seeded random init, blocks.10+11,
-     2048 -> 4096, bf16, unsupervised), then cli.evaluate on its pickles;
-     one category again with --precision default --supervised supervised;
-     the launch counts of each run; the kernel on one category's
-     embeddings against its plain version; embed ms/image, alpha
-     ms/category and sweep img/s; one more sweep under torch.profiler
-     for the device time by kernel and the busy share.
-The line before the last is the kernels JSON; the last line is the result
-JSON.  Exits non-zero, printing no result, without CUDA or outside a
+     2048 -> 4096, bf16, unsupervised, dense attention), then
+     cli.evaluate on its pickles; one category again with --precision
+     default --supervised supervised; the launch counts of each run; the
+     min_dists kernel on one category's embeddings against its plain
+     version; embed ms/image, alpha ms/category and sweep img/s; one more
+     sweep under torch.profiler for the device time by kernel and the busy
+     share;
+  5. flash path: a full-width dino_vitbase8 .pth (seeded init, module.
+     prefix, an extra head) through tpu_ac_torch.cli.convert --verify
+     --install, the embedder built from that cache dir with
+     attention_impl="flash" (its weights checked exactly), two sweeps of
+     the same tree with their flash launches counted (12 blocks x 32
+     batches), their pickles checked, bottle's embeddings against the
+     dense and f32 embedders of the same weights, embed ms/image flash vs
+     dense, sweep img/s, and one profiled sweep;
+  6. timings at the main path's shapes: each kernel beside its bound, its
+     plain version and a library yardstick (cdist; scaled_dot_product_
+     attention), which the port never calls.
+Before the card's line come the run's end-to-end numbers as one summary
+JSON; the line before the last is the kernels JSON; the last line is the
+result JSON.  Exits non-zero, printing no result, without CUDA or outside a
 checkout of the repository.
 """
 
@@ -39,9 +54,20 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM dense peaks at 700 W (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12  # outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 SOURCE = "tpu_ac_torch/csrc/min_dists.cu"
 REPLACES = "tpu_ac/kernels/distances.py:219"
+FLASH_SOURCE = "tpu_ac_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = "tpu_ac/kernels/attention.py:26"
+# B, H, S, Dh of the flash path: ViT-B/8 at 224 px (784 patches + CLS),
+# batch 8
+FLASH_SHAPE = (8, 12, 785, 64)
+# the SFU's exponentials: 16 per clock per SM, 132 SMs at the 1.98 GHz boost
+EXP_PER_S = 16 * 132 * 1.98e9
+# weights of the checkpoint route: a seed other than the registry's seed-0
+# fallback, so a checkpoint that is not found cannot pass for one that is
+CKPT_SEED = 1
 
 
 def _fatal(msg: str) -> None:
@@ -196,22 +222,122 @@ def phase_timing(torch, dist, n_sym: int, n_rect: tuple[int, int]):
     return out
 
 
-def phase_main_path(torch, dist, work: str, sizes: dict[str, int]):
-    """CLI stage 1 + 2 on a synthetic tree; returns launches per mode and
-    the run's numbers."""
-    import numpy as np
+def _packed_qkv(torch, gen, b: int, h: int, s: int, dh: int, dtype):
+    """q, k, v [B, H, S, Dh] as the ViT makes them: strided views of one
+    packed [B, S, 3, H, Dh] projection."""
+    qkv = torch.randn(b, s, 3, h, dh, device="cuda", generator=gen)
+    return qkv.to(dtype).permute(2, 0, 3, 1, 4).unbind(0)
 
-    from tpu_ac_torch.cli.evaluate import main as cli_eval
-    from tpu_ac_torch.cli.main import main as cli_main
+
+# the largest gap over its per-element limit (attention.flash_tolerance)
+# seen by each flash check, by dtype
+FLASH_WORST = {}
+
+
+def _flash_check(torch, attn, q, k, v, bias, label: str) -> float:
+    """Flash kernel vs its plain version, element by element against
+    attention.flash_tolerance (bf16: u (P|V|) + 2u |out| with u = 2^-8,
+    the kernel's rounding of P and of the two outputs; f32: 1e-5 (P|V|));
+    fatal past it, else returns the max abs error."""
+    scale = q.shape[-1] ** -0.5
+    ids = attn.bias_to_segment_ids(bias, q.shape[2])
+    got = attn.flash_attention_impl(q, k, v, scale, bias)
+    want = attn.flash_attention_plain(q, k, v, scale, ids)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        _fatal(f"{label}: shape {tuple(got.shape)} or non-finite values")
+    tol = attn.flash_tolerance(q, k, v, scale, ids, want)
+    gap = (got.float() - want.float()).abs()
+    err, worst = float(gap.max()), float((gap / tol).max())
+    dtype = str(q.dtype).split(".")[-1]
+    FLASH_WORST[dtype] = max(FLASH_WORST.get(dtype, 0.0), worst)
+    print(f"flash {label} {dtype}: max_abs_err={err:.3e}, max gap/tol="
+          f"{worst:.3f} (tol per element {float(tol.min()):.2e}.."
+          f"{float(tol.max()):.2e}, median {float(tol.median()):.2e}; "
+          f"mean |out| {float(want.float().abs().mean()):.2e})", flush=True)
+    if worst > 1.0:
+        _fatal(f"flash {label} {dtype}: the kernel disagrees with its "
+               "plain version")
+    return err
+
+
+def phase_flash_kernel(torch, attn) -> float:
+    """Flash kernel vs plain on the card; returns the largest max abs
+    error."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    b, h, s, dh = FLASH_SHAPE
+    errs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for sl in (s, 17, 26, 130):
+            q, k, v = _packed_qkv(torch, gen, b, h, sl, dh, dtype)
+            errs.append(_flash_check(torch, attn, q, k, v, None,
+                                     f"[{b}, {h}, {sl}, {dh}]"))
+        # keys 200..255 masked: the padded rows see only the padded keys
+        q, k, v = _packed_qkv(torch, gen, b, h, 256, dh, dtype)
+        bias = torch.zeros(1, 1, 1, 256, device="cuda")
+        bias[..., 200:] = -1e9
+        errs.append(_flash_check(torch, attn, q, k, v, bias,
+                                 f"[{b}, {h}, 256, {dh}] segment mask "
+                                 "over the last 56 keys"))
+    return max(errs)
+
+
+def phase_flash_timing(torch, attn) -> dict:
+    """Times at the flash path's shape, bf16: the kernel, its plain
+    version, the dense bf16 attention the ViT runs without it, and
+    scaled_dot_product_attention as the library yardstick."""
+    import torch.nn.functional as F
+
+    b, h, s, dh = FLASH_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = _packed_qkv(torch, gen, b, h, s, dh, torch.bfloat16)
+    scale = dh ** -0.5
+    flops = 4.0 * b * h * s * s * dh
+    n_bytes = 4.0 * b * h * s * dh * 2  # q, k, v read, out written
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = n_bytes / PEAK_HBM_BYTES * 1e3
+    bound, bound_by = (t_ops, "operations") if t_ops >= t_bytes \
+        else (t_bytes, "bytes")
+    t_exp = b * h * s * s / EXP_PER_S * 1e3
+
+    def dense():
+        a = torch.softmax(torch.matmul(q, k.transpose(-2, -1)) * scale, -1)
+        return torch.matmul(a, v)
+
+    err = _flash_check(torch, attn, q, k, v, None,
+                       f"[{b}, {h}, {s}, {dh}] (timed inputs)")
+    ms = _time_ms(lambda: attn.flash_attention_impl(q, k, v, scale),
+                  reps=20, warmup=3)
+    plain_ms = _time_ms(lambda: attn.flash_attention_plain(q, k, v, scale),
+                        reps=20, warmup=3)
+    dense_ms = _time_ms(dense, reps=20, warmup=3)
+    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, scale=scale), reps=20, warmup=3)
+    print(f"timing flash bf16 [{b}, {h}, {s}, {dh}]: kernel {ms:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s), bound {bound:.4f} ms "
+          f"({bound_by}; bytes {t_bytes:.4f} ms, exponentials "
+          f"{t_exp:.4f} ms), plain {plain_ms:.4f} ms, dense bf16 "
+          f"{dense_ms:.4f} ms, scaled_dot_product_attention "
+          f"{library_ms:.4f} ms", flush=True)
+    # the f32 variant (precision="default"/"highest"): FMAs, no tensor
+    # cores; its bound is the 67 TFLOP/s f32 peak
+    q, k, v = (t.float() for t in (q, k, v))
+    f32_ms = _time_ms(lambda: attn.flash_attention_impl(q, k, v, scale),
+                      reps=20, warmup=3)
+    f32_plain_ms = _time_ms(
+        lambda: attn.flash_attention_plain(q, k, v, scale), reps=20,
+        warmup=3)
+    print(f"timing flash f32 [{b}, {h}, {s}, {dh}]: kernel {f32_ms:.4f} ms "
+          f"({flops / f32_ms / 1e9:.1f} TFLOP/s), bound "
+          f"{flops / PEAK_F32_FLOPS * 1e3:.4f} ms (operations, f32 FMA "
+          f"peak), plain {f32_plain_ms:.4f} ms", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                library_ms=library_ms, dense_ms=dense_ms, f32_ms=f32_ms,
+                f32_plain_ms=f32_plain_ms, max_abs_err=err)
+
+
+def _make_tree(work: str, sizes: dict[str, int]) -> str:
     from tpu_ac_torch.data.mvtec import make_synthetic_mvtec
-    from tpu_ac_torch.pipeline import (
-        PipelineConfig,
-        artifact_dir,
-        build_embedder_for_config,
-        compute_alpha_X,
-        load_alpha_X,
-        run_category_sweep,
-    )
 
     root = os.path.join(work, "mvtec")
     anomalies = ("good", "broken_large", "contamination", "crack")
@@ -220,17 +346,60 @@ def phase_main_path(torch, dist, work: str, sizes: dict[str, int]):
                              n_per_anomaly=n // len(anomalies),
                              n_train=n, image_size=256,
                              seed=len(cat))
+    return root
+
+
+def _check_pickles(out_dir: str, cfg, supervised: str, cats,
+                   sizes: dict[str, int]) -> None:
+    """The stage-1 artifacts: shapes, finite values, alpha rows sum to 1."""
+    import numpy as np
+
+    from tpu_ac_torch.pipeline import artifact_dir, load_alpha_X
+
+    d = artifact_dir(out_dir, "mvtec_ad", "dino_vitbase8", supervised, cfg)
+    for cat in cats:
+        alpha, X = load_alpha_X(os.path.join(
+            d, f"matrix_alpha_X_{cat}_{supervised}.pickle"))
+        n = sizes[cat]
+        if alpha.shape != (n, 1, 784) or X.shape != (n, 4096):
+            _fatal(f"{cat} {supervised}: shapes {alpha.shape} {X.shape}")
+        if not (np.isfinite(alpha).all() and np.isfinite(X).all()):
+            _fatal(f"{cat} {supervised}: non-finite alpha or X")
+        rowsum = alpha[:, 0].sum(-1)
+        if np.abs(rowsum - 1.0).max() > 1e-4:
+            _fatal(f"{cat} {supervised}: alpha rows sum to {rowsum}")
+        print(f"pickle {out_dir}/.../{cat} {supervised}: alpha "
+              f"{alpha.shape} X {X.shape} finite, |rowsum-1| <= "
+              f"{np.abs(rowsum - 1.0).max():.1e}", flush=True)
+
+
+def phase_main_path(torch, dist, attn, work: str, root: str,
+                    sizes: dict[str, int]):
+    """CLI stage 1 + 2 on the synthetic tree (dense attention); returns
+    launches per mode and the run's numbers."""
+    from tpu_ac_torch.cli.evaluate import main as cli_eval
+    from tpu_ac_torch.cli.main import main as cli_main
+    from tpu_ac_torch.pipeline import (
+        PipelineConfig,
+        build_embedder_for_config,
+        compute_alpha_X,
+        run_category_sweep,
+    )
+
     out_dir = os.path.join(work, "out")
     cats = list(sizes)
     common = ["--path", root, "--output_dir", out_dir,
               "--backbone_names", "dino_vitbase8"]
 
     launches = {}
-    dist.LAUNCHES = 0
+    dist.LAUNCHES = attn.LAUNCHES = 0
     t0 = time.perf_counter()
     cli_main(common + ["--categories", *cats])
     cli_s = time.perf_counter() - t0
     launches["symmetric"] = dist.LAUNCHES
+    if attn.LAUNCHES:
+        _fatal(f"the dense path launched the flash kernel {attn.LAUNCHES} "
+               "times")
     cli_eval(["--path", root, "--output_dir", out_dir, "--backbone_names",
               "dino_vitbase8", "--tau_list", "1.0", "--supervised_modes",
               "unsupervised", "--categories", *cats])
@@ -244,24 +413,8 @@ def phase_main_path(torch, dist, work: str, sizes: dict[str, int]):
             _fatal(f"the {mode} kernel was not launched on the main path")
 
     cfg = PipelineConfig(batch_size=8, precision="bfloat16")
-    for supervised, cat_list in (("unsupervised", cats),
-                                 ("supervised", cats[:1])):
-        d = artifact_dir(out_dir, "mvtec_ad", "dino_vitbase8", supervised,
-                         cfg)
-        for cat in cat_list:
-            alpha, X = load_alpha_X(os.path.join(
-                d, f"matrix_alpha_X_{cat}_{supervised}.pickle"))
-            n = sizes[cat]
-            if alpha.shape != (n, 1, 784) or X.shape != (n, 4096):
-                _fatal(f"{cat} {supervised}: shapes {alpha.shape} {X.shape}")
-            if not (np.isfinite(alpha).all() and np.isfinite(X).all()):
-                _fatal(f"{cat} {supervised}: non-finite alpha or X")
-            rowsum = alpha[:, 0].sum(-1)
-            if np.abs(rowsum - 1.0).max() > 1e-4:
-                _fatal(f"{cat} {supervised}: alpha rows sum to {rowsum}")
-            print(f"pickle {cat} {supervised}: alpha {alpha.shape} X "
-                  f"{X.shape} finite, |rowsum-1| <= "
-                  f"{np.abs(rowsum - 1.0).max():.1e}", flush=True)
+    _check_pickles(out_dir, cfg, "unsupervised", cats, sizes)
+    _check_pickles(out_dir, cfg, "supervised", cats[:1], sizes)
     csv_path = os.path.join(out_dir, "mvtec_ad", "dino_vitbase8",
                             "unsupervised",
                             "blocks.10_blocks.11_2048_4096_tau_result.csv")
@@ -324,19 +477,20 @@ def phase_main_path(torch, dist, work: str, sizes: dict[str, int]):
             pass
         sweep_s.append(time.perf_counter() - t0)
     n_img = sum(sizes.values())
-    _profile_sweep(torch, lambda: run_category_sweep(root, cats, cfg, emb),
-                   sweep_s[-1])
+    busy = _profile_sweep(
+        torch, lambda: run_category_sweep(root, cats, cfg, emb), sweep_s[-1])
     return launches, dict(
         cli_s=cli_s, embed_ms_per_image=embed_ms, alpha_ms=alpha_ms,
-        decode_ms=decode_ms,
+        decode_ms=decode_ms, busy_pct=busy,
         sweep_img_s=n_img / sweep_s[-1], sweep_s=sweep_s,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
-def _profile_sweep(torch, sweep, sweep_s: float) -> None:
+def _profile_sweep(torch, sweep, sweep_s: float) -> float:
     """One more sweep under torch.profiler: the device time by kernel, and
-    its sum against the unprofiled sweep's wall time (the busy share; it
-    ignores overlap between the copy engines and the kernels)."""
+    its sum against the unprofiled sweep's wall time (the busy share, in %,
+    returned; it ignores overlap between the copy engines and the
+    kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -354,6 +508,132 @@ def _profile_sweep(torch, sweep, sweep_s: float) -> None:
     for ms, count, key in sorted(rows, reverse=True)[:10]:
         print(f"  {ms:9.2f} ms {100 * ms / busy_ms:5.1f}% x{count:<5d} "
               f"{key[:90]}", flush=True)
+    return 100 * busy_ms / (sweep_s * 1e3)
+
+
+def _rel_gap(torch, a, b) -> float:
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+def phase_flash_path(torch, dist, attn, work: str, root: str,
+                     sizes: dict[str, int]) -> dict:
+    """The checkpoint route at full width, then the flash sweep from it."""
+    from tpu_ac_torch.cli.convert import main as cli_convert
+    from tpu_ac_torch.data.mvtec import DatasetSplit, MVTecDataset
+    from tpu_ac_torch.models.registry import BACKBONE_CONFIGS
+    from tpu_ac_torch.models.vit import init_vit_params
+    from tpu_ac_torch.pipeline import (
+        PipelineConfig,
+        build_embedder_for_config,
+        compute_alpha_X,
+        run_category_sweep,
+    )
+
+    # a .pth as a DDP run saves it, with a classifier head the ViT lacks
+    spec = BACKBONE_CONFIGS["dino_vitbase8"]
+    init = init_vit_params(CKPT_SEED, spec.config)
+    sd = {"module." + k: torch.from_numpy(v) for k, v in init.items()}
+    sd["module.head.weight"] = torch.zeros(1000, 768)
+    raw = os.path.join(work, "dino_vitbase8_ddp.pth")
+    torch.save(sd, raw)
+    del sd
+    ckpt_dir = os.path.join(work, "ckpt")
+    t0 = time.perf_counter()
+    report = cli_convert([raw, "--backbone", "dino_vitbase8", "--verify",
+                          "--install", "--cache_dir", ckpt_dir])
+    convert_s = time.perf_counter() - t0
+    if report["missing"] or report["shape_mismatch"] or \
+            report["unexpected"] != ["head.weight"] or not os.path.isfile(
+                os.path.join(ckpt_dir, spec.checkpoint)):
+        _fatal(f"cli.convert --verify --install: {report}")
+    cfg = PipelineConfig(batch_size=8, precision="bfloat16")
+    emb = build_embedder_for_config(cfg, device="cuda",
+                                    checkpoint_dir=ckpt_dir,
+                                    attention_impl="flash")
+    state = emb._model.state_dict()
+    bad = sorted(set(state) ^ set(init)) + [
+        k for k in init if not torch.equal(
+            state[k].cpu(), torch.from_numpy(init[k]).to(torch.bfloat16))]
+    if bad:
+        _fatal(f"the flash embedder's weights are not the installed "
+               f"checkpoint's: {bad[:8]}")
+    print(f"checkpoint route: cli.convert --verify --install "
+          f"{convert_s:.1f} s; the flash embedder holds the installed "
+          f"seed-{CKPT_SEED} init exactly ({len(init)} tensors, bf16)",
+          flush=True)
+
+    # the flash sweep, its launches counted: 12 blocks per batch of 8
+    cats = list(sizes)
+    want = 12 * sum(math.ceil(n / cfg.batch_size) for n in sizes.values())
+    out_dir = os.path.join(work, "out_flash")
+    sweep_s = []
+    for _ in range(2):  # the first is warm-up
+        dist.LAUNCHES = attn.LAUNCHES = 0
+        t0 = time.perf_counter()
+        for _c, _r in run_category_sweep(root, cats, cfg, emb,
+                                         output_dir=out_dir):
+            pass
+        sweep_s.append(time.perf_counter() - t0)
+        launches = {"flash_attention": attn.LAUNCHES,
+                    "min_dists_symmetric": dist.LAUNCHES}
+        print(f"flash sweep: launches {launches}", flush=True)
+        if launches["flash_attention"] != want or \
+                launches["min_dists_symmetric"] != len(cats):
+            _fatal(f"the flash sweep launched {launches}; want "
+                   f"{want} flash launches (12 blocks x "
+                   f"{want // 12} batches) and {len(cats)} min_dists")
+    _check_pickles(out_dir, cfg, "unsupervised", cats, sizes)
+
+    # bottle through the flash, dense and f32 embedders of the same weights
+    images = {c: MVTecDataset(root, classname=c, split=DatasetSplit.TEST)
+              .load_all_images() for c in cats}
+    dense = build_embedder_for_config(cfg, device="cuda",
+                                      checkpoint_dir=ckpt_dir)
+    f32 = build_embedder_for_config(
+        PipelineConfig(batch_size=8, precision="highest"), device="cuda",
+        checkpoint_dir=ckpt_dir)
+    small = cats[0]
+    Zf, Zd, Z32 = (e(images[small]) for e in (emb, dense, f32))
+    gap, noise = _rel_gap(torch, Zf, Zd), _rel_gap(torch, Zd, Z32)
+    flash_f32 = _rel_gap(torch, Zf, Z32)
+    a_f, _ = compute_alpha_X(Zf, "unsupervised", 1.0, precision="bf16")
+    a_d, _ = compute_alpha_X(Zd, "unsupervised", 1.0, precision="bf16")
+    alpha_gap = float(((a_f - a_d).abs() / a_d).max())
+    print(f"{small}'s embeddings, relative L2 gaps: flash vs dense bf16 "
+          f"{gap:.3e}, dense bf16 vs f32 {noise:.3e}, flash vs f32 "
+          f"{flash_f32:.3e}; max abs flash vs dense "
+          f"{float((Zf - Zd).abs().max()):.3e} (max |Z| "
+          f"{float(Zd.abs().max()):.3e}); alpha max relative gap "
+          f"{alpha_gap:.3e}", flush=True)
+    # two bf16 paths that each round about as much as the dense one does
+    # against f32 differ by about sqrt(2) times that; 3x leaves room for
+    # the flash path's rounding of P, and a wrong kernel is far beyond it
+    if not gap <= 3.0 * noise:
+        _fatal(f"flash vs dense embeddings {gap:.3e} > 3 x the bf16 "
+               f"rounding noise {noise:.3e}")
+    del Zf, Zd, Z32, f32
+
+    embed_ms = {}
+    big = cats[-1]
+    for tag, e in (("flash", emb), ("dense", dense)):
+        e(images[big])  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e(images[big])
+        torch.cuda.synchronize()
+        embed_ms[tag] = (time.perf_counter() - t0) * 1e3 / sizes[big]
+    n_img = sum(sizes.values())
+    print(f"flash path: embed {embed_ms['flash']:.3f} ms/image (dense "
+          f"{embed_ms['dense']:.3f}, same weights, bf16, batch 8), sweep "
+          f"{n_img / sweep_s[-1]:.1f} img/s over {n_img} images (sweeps "
+          f"{sweep_s} s)", flush=True)
+    busy = _profile_sweep(
+        torch, lambda: run_category_sweep(root, cats, cfg, emb), sweep_s[-1])
+    return dict(launches=launches["flash_attention"], embed_ms=embed_ms,
+                sweep_img_s=n_img / sweep_s[-1], busy_pct=busy,
+                convert_s=convert_s, rel_gaps=[gap, noise, flash_f32],
+                alpha_gap=alpha_gap)
 
 
 def main() -> None:
@@ -372,29 +652,37 @@ def main() -> None:
           f"{torch.version.cuda}, python {sys.version.split()[0]}",
           flush=True)
 
+    from tpu_ac_torch.kernels import attention as attn
     from tpu_ac_torch.kernels import build
     from tpu_ac_torch.kernels import distances as dist
 
     t0 = time.perf_counter()
     build.build_all()
-    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    build_s = time.perf_counter() - t0
+    print(f"build: {build_s:.1f} s", flush=True)
     for name, log in build.BUILD_LOG.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
+    # the plain versions' f32 products: full f32, as the tolerances assume
+    torch.backends.cuda.matmul.allow_tf32 = False
     errs = phase_kernels(torch, dist)
+    flash_err = phase_flash_kernel(torch, attn)
     sizes = {"bottle": 84, "screw": 168}
     work = os.path.join(HERE, "build", "smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     try:
-        launches, run = phase_main_path(torch, dist, work, sizes)
+        root = _make_tree(work, sizes)
+        launches, run = phase_main_path(torch, dist, attn, work, root, sizes)
+        flash_run = phase_flash_path(torch, dist, attn, work, root, sizes)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # the supervised run pads its 84 queries to the 32-image bucket (96)
     timing = phase_timing(torch, dist, n_sym=max(sizes.values()),
                           n_rect=(96, min(sizes.values())))
+    flash_timing = phase_flash_timing(torch, attn)
 
     print(f"main path on {kind} ({card}): embed "
           f"{run['embed_ms_per_image']:.3f} ms/image (ViT-B/8 + tail, bf16,"
@@ -416,6 +704,39 @@ def main() -> None:
             "max_abs_err": max(errs[mode], t["max_abs_err"]), "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    t = flash_timing
+    kernels.append({
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES, "launches": flash_run["launches"],
+        "max_abs_err": max(flash_err, t["max_abs_err"]), "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    # the end-to-end numbers of this run on one short line, so that they
+    # stay in the last lines of the output beside the kernels line
+    def r4(x: float) -> float:
+        return round(x, 4)
+
+    print(json.dumps({"summary": {
+        "build_s": r4(build_s),
+        "flash_gap_over_tol": {d: r4(w) for d, w in FLASH_WORST.items()},
+        "flash_f32_ms": r4(t["f32_ms"]),
+        "flash_f32_plain_ms": r4(t["f32_plain_ms"]),
+        "dense_attention_ms": r4(t["dense_ms"]),
+        "embed_ms_per_image": {"dense": r4(run["embed_ms_per_image"]),
+                               "flash": r4(flash_run["embed_ms"]["flash"]),
+                               "dense_same_weights":
+                                   r4(flash_run["embed_ms"]["dense"])},
+        "sweep_img_s": {"dense": r4(run["sweep_img_s"]),
+                        "flash": r4(flash_run["sweep_img_s"])},
+        "busy_pct": {"dense": r4(run["busy_pct"]),
+                     "flash": r4(flash_run["busy_pct"])},
+        "decode_ms": {c: r4(ms) for c, ms in run["decode_ms"].items()},
+        "alpha_ms": {c: r4(ms) for c, ms in run["alpha_ms"].items()},
+        "bottle_rel_l2_flash_dense_f32": [
+            float(f"{g:.4g}") for g in flash_run["rel_gaps"]],
+        "alpha_gap_flash_dense": float(f"{flash_run['alpha_gap']:.4g}"),
+        "convert_s": r4(flash_run["convert_s"]),
+        "peak_gib": r4(run["peak_gib"])}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

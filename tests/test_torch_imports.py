@@ -38,4 +38,16 @@ def test_no_jax_or_tpu_ac_import(path):
 def test_scan_sees_the_package():
     names = {os.path.relpath(p, ROOT) for p in _port_files()}
     assert "chip_smoke.py" in names
-    assert "tpu_ac_torch/kernels/distances.py" in names
+    for mod in ("kernels/distances.py", "kernels/attention.py",
+                "models/convert.py", "models/manifest.py", "cli/convert.py",
+                "hub.py"):
+        assert f"tpu_ac_torch/{mod}" in names
+
+
+def test_manifest_is_the_ports_own():
+    """The port reads its own frozen manifests, not tpu_ac's file."""
+    from tpu_ac_torch.models.manifest import MANIFEST_PATH
+
+    port = os.path.join(ROOT, "tpu_ac_torch") + os.sep
+    assert os.path.abspath(MANIFEST_PATH).startswith(port)
+    assert os.path.isfile(MANIFEST_PATH)

@@ -76,8 +76,22 @@ def test_forward_stops_after_deepest_tap(model):
 
 
 def test_flash_attention_not_ported(model):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(torch.zeros(1, 3, 32, 32), taps=(0,), attention_impl="flash")
+    """attention_impl="flash" is ported: on the CPU it runs the kernel's
+    plain version, gives the dense forward's tokens (rtol 1e-5, f32 on both
+    sides) and launches nothing; an unknown impl raises."""
+    from tpu_ac_torch.kernels import attention
+
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 3, 32, 32)).astype(np.float32))
+    before = attention.LAUNCHES
+    with torch.inference_mode():
+        dense = model(x, taps=(3,))
+        flash = model(x, taps=(3,), attention_impl="flash")
+    np.testing.assert_allclose(flash[3].numpy(), dense[3].numpy(),
+                               rtol=1e-5, atol=1e-6)
+    assert attention.LAUNCHES == before
+    with pytest.raises(ValueError, match="attention_impl"):
+        model(x, taps=(0,), attention_impl="pallas")
 
 
 def test_converter_rejects_missing_key(params):

@@ -1,0 +1,34 @@
+"""Model-hub style factories for the DINO ViTs (port of ``tpu_ac.hub``,
+dino-main/hubconf.py:22-75).
+
+Each factory returns (module, config, family) with the released weights
+when a converted checkpoint is in the checkpoint cache (nothing is
+downloaded; see ``tpu_ac_torch.models.registry`` for the search path),
+else the seeded random init.  The ResNet, XCiT and WRN factories wait for
+their families (ROADMAP.md Queue 1 items 8-9).
+"""
+
+from __future__ import annotations
+
+from tpu_ac_torch.models.registry import load_backbone
+
+
+def dino_vits16(**kw):
+    """ViT-S/16 DINO backbone (hubconf.py:22-33)."""
+    return load_backbone("dino_deitsmall16", **kw)
+
+
+def dino_vits8(**kw):
+    """ViT-S/8 DINO backbone (hubconf.py:36-47)."""
+    return load_backbone("dino_deitsmall8", **kw)
+
+
+def dino_vitb16(**kw):
+    """ViT-B/16 DINO backbone (hubconf.py:50-61)."""
+    return load_backbone("dino_vitbase16", **kw)
+
+
+def dino_vitb8(**kw):
+    """ViT-B/8 DINO backbone, the anomaly-clustering flagship
+    (hubconf.py:64-75)."""
+    return load_backbone("dino_vitbase8", **kw)

@@ -1,0 +1,191 @@
+"""Flash (streaming-softmax) attention for the ViT trunk: wrapper of the CUDA
+kernel ``csrc/flash_attention.cu`` and its plain PyTorch version (port of
+``tpu_ac.kernels.attention.flash_attention_impl``).
+
+    out[b, h, i] = softmax_j(q[b, h, i] . k[b, h, j] * scale) v[b, h, j]
+
+over the keys j visible to query i.  ``attn_bias`` keeps ``tpu_ac``'s
+contract: ``None`` or a batch-uniform [1, ..., 1, S] additive key mask,
+which becomes the segment ids of the stock TPU kernel (``bias < -1`` gives
+1, else 0; key j is visible to query i only if their ids are equal, so a
+padded query row sees only the padded keys).  A per-batch or wrong-length
+bias raises ``NotImplementedError``, as in ``tpu_ac``.
+
+A CUDA tensor launches the kernel or raises; a CPU tensor runs
+``flash_attention_plain``.  The kernel takes any S (the ragged tail is
+masked in the kernel, not padded) and head dim 64 only.  It reads q, k, v
+through their strides, so the strided views of a packed qkv projection go in
+without a copy; what it cannot address (a last dim that is not contiguous,
+rows not 16-byte aligned) raises instead of being copied.  The output is
+[B, H, S, Dh] laid out as [B, S, H, Dh] in memory, the layout the output
+projection reads.  The TPU tuning knobs (``TPU_AC_FLASH_BLOCK_*``, the head
+dim's zero padding to 128 lanes) are not carried.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+# kernel launches made by flash_attention_impl (CUDA tensors only)
+LAUNCHES = 0
+
+HEAD_DIM = 64  # the only head dim the kernel takes (every dino_vit* name)
+_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def bias_to_segment_ids(attn_bias: torch.Tensor | None,
+                        s: int) -> torch.Tensor | None:
+    """The additive key mask -> int32 [S] segment ids (``tpu_ac``'s
+    conversion), or None."""
+    if attn_bias is None:
+        return None
+    if attn_bias.shape[-1] != s or any(d != 1 for d in attn_bias.shape[:-1]):
+        raise NotImplementedError(
+            "flash attention_impl supports only a batch-uniform "
+            f"[1, ..., 1, S] key mask; got {tuple(attn_bias.shape)}. "
+            "Per-batch or truly additive biases need the dense path.")
+    return (attn_bias.reshape(-1) < -1.0).to(torch.int32)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"want q, k, v of one shape [B, H, S, Dh]; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"want q, k, v all bfloat16 or all float32; got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: float,
+                          segment_ids: torch.Tensor | None = None
+                          ) -> torch.Tensor:
+    """Dense softmax(QK^T * scale + segment mask) V, upcast to f32 and cast
+    back to the input type."""
+    _check(q, k, v)
+    qf, kf, vf = (t.to(torch.float32) for t in (q, k, v))
+    logits = torch.matmul(qf, kf.transpose(-2, -1)) * scale
+    if segment_ids is not None:
+        ids = segment_ids.to(q.device)
+        logits = logits.masked_fill(ids[:, None] != ids[None, :],
+                                    float("-inf"))
+    return torch.matmul(torch.softmax(logits, dim=-1), vf).to(q.dtype)
+
+
+# bf16's unit roundoff (8 significant bits)
+_BF16_U = 2.0 ** -8
+# f32 variant: gap over the attention of |V|
+_F32_RTOL = 1e-5
+
+
+def flash_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float, segment_ids: torch.Tensor | None,
+                    want: torch.Tensor) -> torch.Tensor:
+    """Per element, the largest gap the kernel may have from ``want``, the
+    plain version's output on the same inputs (f32).
+
+    Both sides compute o = sum_j p_j v_j / l from the same logits in f32;
+    let m = sum_j p_j |v_j| / l, the plain attention of |V|.
+      - bf16: the kernel rounds each p_j to bf16 before P.V (relative u =
+        2^-8; l sums the unrounded p), which moves o by at most u m; then
+        each side rounds its f32 o to bf16 once (u |o| each).  So the
+        outputs differ by at most u m + 2u |want| to first order, held with
+        5% over it for the f32 sums in another order and exp2 for exp
+        (about 1e-6 of m).
+      - f32: the same sums in another order and exp2 for exp; 1e-5 m, about
+        6x the sqrt(S) u_f32 m spread of such sums at S = 785.
+    At [8, 12, 785, 64] with unit-variance q, k, v, m is about 0.8 and
+    |out| about 0.05, so the bf16 limit is about 3.5e-3 an element, while a
+    kernel that drops the 17 keys of the ragged tile is off by up to 0.05.
+    """
+    f = [t.to(torch.float32) for t in (q, k, v)]
+    m = flash_attention_plain(f[0], f[1], f[2].abs(), scale, segment_ids)
+    if q.dtype == torch.bfloat16:
+        return 1.05 * _BF16_U * (m + 2.0 * want.to(torch.float32).abs())
+    return _F32_RTOL * m
+
+
+_FN = None
+
+
+def _kernel_fn():
+    global _FN
+    if _FN is None:
+        from tpu_ac_torch.kernels.build import library
+
+        fn = library("flash_attention").tpu_ac_flash_attention
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_float,
+                       ci, vp]
+        fn.restype = ci
+        _FN = fn
+    return _FN
+
+
+def _check_layout(name: str, t: torch.Tensor) -> None:
+    """The kernel reads rows of Dh contiguous values with 16-byte loads."""
+    step = 16 // t.element_size()
+    strides = [st for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+    if t.stride(3) != 1 or t.data_ptr() % 16 or any(st % step
+                                                     for st in strides):
+        raise ValueError(
+            f"{name}: the kernel needs a contiguous last dim and 16-byte "
+            f"aligned rows; got strides {t.stride()} at offset "
+            f"{t.data_ptr() % 16} (mod 16)")
+
+
+def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                scale: float, ids: torch.Tensor | None) -> torch.Tensor:
+    global LAUNCHES
+    b, h, s, d = q.shape
+    if d != HEAD_DIM:
+        raise ValueError(
+            f"the flash kernel takes head dim {HEAD_DIM} only, got {d}: "
+            "other head dims are ROADMAP.md Queue 2 item 5")
+    if b > 65535 or h > 65535:
+        raise ValueError(f"B={b}, H={h}: each must be <= 65535 (grid)")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_layout(name, t)
+    dev = q.device
+    if ids is not None:
+        ids = ids.to(device=dev, dtype=torch.int32).contiguous()
+    # [B, S, H, Dh] storage, returned as the [B, H, S, Dh] view
+    out = torch.empty(b, s, h, d, dtype=q.dtype, device=dev).permute(
+        0, 2, 1, 3)
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    fn = _kernel_fn()
+    with torch.cuda.device(dev):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if ids is None else ids.data_ptr(), strides, b, h, s,
+                float(scale), int(q.dtype == torch.bfloat16),
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"flash_attention kernel launch failed: cudaError {rc}")
+    LAUNCHES += 1
+    return out
+
+
+def flash_attention_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float,
+                         attn_bias: torch.Tensor | None = None
+                         ) -> torch.Tensor:
+    """softmax(QK^T * scale)V -> [B, H, S, Dh] in the input type.
+
+    q, k, v: [B, H, S, Dh], all bfloat16 or all float32, on one device.  On
+    CUDA this launches the kernel (or raises); on the CPU it runs the plain
+    version.
+    """
+    _check(q, k, v)
+    ids = bias_to_segment_ids(attn_bias, q.shape[2])
+    if q.device.type == "cuda":
+        return _flash_cuda(q, k, v, scale, ids)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale, ids)
+    raise ValueError(f"unsupported device {q.device}")

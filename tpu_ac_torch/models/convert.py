@@ -1,22 +1,113 @@
-"""Carry a ``tpu_ac`` params dict (numpy arrays under DINO state_dict names)
-into a ``tpu_ac_torch`` module.
+"""Torch checkpoints and ``tpu_ac`` params dicts into ``tpu_ac_torch``
+modules (port of ``tpu_ac.models.convert``, the ViT families' part).
 
-The keys already match, so conversion is a checked copy: every key of the
-module is present, no key is extra, and every shape agrees.
+Param keys mirror the torch state_dict names of the released DINO
+checkpoints, and a params dict is numpy arrays under those keys, so one set
+of weights feeds both packages.  ``load_torch_checkpoint`` reads a ``.pth``
+the way ``tpu_ac`` does (sub-dict key, ``state_dict`` wrapper, ``module.`` /
+``backbone.`` prefixes, BN counters dropped) into such a dict;
+``load_jax_params`` is the checked copy of a params dict into a module.
+``tpu_ac``'s DenseNet key remap and MoCo renaming are not carried: those
+families are not ported (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
 
+import logging
+import pickle
 from typing import Any, Mapping
 
 import numpy as np
 import torch
 from torch import nn
 
+LOGGER = logging.getLogger(__name__)
+
+
+def strip_prefixes(state_dict: Mapping[str, Any],
+                   prefixes: tuple[str, ...] = ("module.", "backbone.")
+                   ) -> dict[str, Any]:
+    """Remove DDP / MultiCropWrapper prefixes (dino-main/utils.py:103-105)."""
+    out = {}
+    for k, v in state_dict.items():
+        for p in prefixes:
+            if k.startswith(p):
+                k = k[len(p):]
+        if k in out:
+            LOGGER.warning(
+                "prefix-stripped key collision: %r — the later entry wins "
+                "(checkpoint holds e.g. both 'module.%s' and '%s')",
+                k, k, k)
+        out[k] = v
+    return out
+
+
+def torch_state_dict_to_params(state_dict: Mapping[str, Any]
+                               ) -> dict[str, np.ndarray]:
+    """A torch state_dict (tensors or arrays) -> a params dict of numpy
+    arrays, prefixes stripped.
+
+    ``num_batches_tracked`` BN counters are dropped: no forward reads them,
+    and keeping them would fail manifest verification spuriously."""
+    params = {}
+    for k, v in strip_prefixes(state_dict).items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        if hasattr(v, "detach"):
+            v = v.detach().cpu().numpy()
+        params[k] = np.asarray(v)
+    return params
+
+
+def load_torch_checkpoint(path: str, checkpoint_key: str | None = None
+                          ) -> dict[str, np.ndarray]:
+    """Load a ``.pth`` from disk and convert it to a params dict.
+
+    The file is read with ``weights_only=True``.  A full training checkpoint
+    (the case ``checkpoint_key`` exists for: "teacher"/"student" of DINO,
+    dino-main/utils.py:84-92) carries non-tensor entries, argparse
+    Namespaces and the like, that ``weights_only`` refuses; such a file is
+    then read again with ``weights_only=False``, like the reference's own
+    ``torch.load``, which unpickles arbitrary objects: load only files you
+    trust.  A ``state_dict`` wrapper is unwrapped.
+    """
+    try:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if checkpoint_key is not None and checkpoint_key in ckpt:
+        ckpt = ckpt[checkpoint_key]
+    if "state_dict" in ckpt:
+        ckpt = ckpt["state_dict"]
+    return torch_state_dict_to_params(ckpt)
+
+
+def validate_params_against_backbone(params: Mapping[str, Any],
+                                     name: str) -> dict:
+    """Key-coverage report of converted params against a registry
+    backbone's structure: {"missing", "unexpected", "shape_mismatch"}, each
+    a list of keys."""
+    from tpu_ac_torch.models.manifest import diff_inventory, params_inventory
+    from tpu_ac_torch.models.registry import load_backbone
+
+    # use_checkpoint=False: the structure comes from the architecture's own
+    # init, not from a cached checkpoint (which would compare the
+    # checkpoint with itself)
+    expected, _cfg, _family = load_backbone(name, use_checkpoint=False)
+    report = diff_inventory(params_inventory(expected.state_dict()),
+                            params_inventory(params))
+    report["shape_mismatch"] = [k for k, *_ in report["shape_mismatch"]]
+    return report
+
 
 def state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """{name: array} -> {name: f32-preserving CPU tensor} (copies)."""
     return {k: torch.from_numpy(np.array(v)) for k, v in params.items()}
+
+
+# the inverse conversion, for a torch.save of converted params (the
+# installed checkpoint format of both packages)
+params_to_torch_state_dict = state_dict_from_jax
 
 
 def load_jax_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:

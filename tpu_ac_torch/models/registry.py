@@ -1,10 +1,17 @@
 """Backbone registry for the DINO ViT names (port of the ``dino_vit*``
-specs of ``tpu_ac.models.registry``).
+specs of ``tpu_ac.models.registry``, with its checkpoint contract).
 
-Weights load from a released DINO ``.pth`` in ``checkpoint_dir`` when one
-is there, else from the seeded random init that ``tpu_ac`` uses (with the
-same warning).  The other backbone families are still to be ported
-(ROADMAP.md Queue 1 item 9).
+Weights come from ``checkpoint_path`` if given, else from the first file
+named by the spec under ``checkpoint_dir`` and then the default cache dirs
+``_DEFAULT_CKPT_DIRS``, the same two as ``tpu_ac``'s: its own install dir
+(``cli/convert.py --install``) and torch.hub's, where the reference keeps
+``dino_vitbase8_pretrain.pth``.  One installed file feeds both packages.
+The file is read by ``models.convert.load_torch_checkpoint`` (the spec's
+``checkpoint_key``, ``state_dict`` wrappers, prefixes); tensors the ViT
+does not have are ignored, as ``tpu_ac`` ignores them, and a missing key
+or a wrong shape raises.  Without a file: the seeded random init that
+``tpu_ac`` uses, with the same warning.  The other backbone families are
+still to be ported (ROADMAP.md Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -13,12 +20,15 @@ import dataclasses
 import logging
 import os
 
-import torch
-
-from tpu_ac_torch.models.convert import load_jax_params
+from tpu_ac_torch.models.convert import load_jax_params, load_torch_checkpoint
 from tpu_ac_torch.models.vit import VIT_BASE, VIT_SMALL, ViT, init_vit_params
 
 LOGGER = logging.getLogger(__name__)
+
+_DEFAULT_CKPT_DIRS = (
+    os.path.expanduser("~/.cache/tpu_ac/checkpoints"),
+    os.path.expanduser("~/.cache/torch/hub/checkpoints"),
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,6 +36,7 @@ class BackboneSpec:
     family: str  # "vit"
     config: object
     checkpoint: str | None  # filename of the released weights
+    checkpoint_key: str | None = None
 
 
 BACKBONE_CONFIGS: dict[str, BackboneSpec] = {
@@ -46,45 +57,54 @@ BACKBONE_CONFIGS: dict[str, BackboneSpec] = {
         "dino_deitsmall8_pretrain.pth"),
 }
 
+# the shipped registry, before any runtime register_backbone (tests
+# register tiny architectures): the frozen manifests cover exactly this set
+BUILTIN_BACKBONES = frozenset(BACKBONE_CONFIGS)
+
 
 def register_backbone(name: str, spec: BackboneSpec) -> None:
     BACKBONE_CONFIGS[name] = spec
 
 
-def _strip_prefixes(state_dict, prefixes=("module.", "backbone.")):
-    """Remove DDP / MultiCropWrapper prefixes (dino-main/utils.py)."""
-    out = {}
-    for k, v in state_dict.items():
-        for p in prefixes:
-            if k.startswith(p):
-                k = k[len(p):]
-        out[k] = v
-    return out
+def _find_checkpoint(filename: str | None,
+                     checkpoint_dir: str | None) -> str | None:
+    if filename is None:
+        return None
+    dirs = ((checkpoint_dir,) if checkpoint_dir else ()) + _DEFAULT_CKPT_DIRS
+    for d in dirs:
+        path = os.path.join(d, filename)
+        if os.path.exists(path):
+            return path
+    return None
 
 
 def load_backbone(name: str, *, checkpoint_dir: str | None = None,
-                  seed: int = 0):
+                  checkpoint_path: str | None = None, seed: int = 0,
+                  use_checkpoint: bool = True):
     """Resolve a backbone name to (module on the CPU in f32, config,
-    family)."""
+    family).  ``use_checkpoint=False`` forces the random init even when a
+    checkpoint is cached (structure probes need the architecture's own
+    keys)."""
     if name not in BACKBONE_CONFIGS:
         raise KeyError(f"Unknown backbone '{name}'. "
                        f"Registered: {sorted(BACKBONE_CONFIGS)}")
     spec = BACKBONE_CONFIGS[name]
     if spec.family != "vit":
         raise NotImplementedError(f"family {spec.family}")
-    model = ViT(spec.config)
     path = None
-    if checkpoint_dir and spec.checkpoint:
-        path = os.path.join(checkpoint_dir, spec.checkpoint)
-        if not os.path.exists(path):
-            path = None
+    if use_checkpoint:
+        path = checkpoint_path or _find_checkpoint(spec.checkpoint,
+                                                   checkpoint_dir)
+    model = ViT(spec.config)
     if path is not None:
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        model.load_state_dict(_strip_prefixes(sd), strict=True)
+        params = load_torch_checkpoint(path, spec.checkpoint_key)
+        want = model.state_dict()
+        params = {k: v for k, v in params.items() if k in want}
     else:
         LOGGER.warning(
             "No checkpoint found for %s — using random init (seed=%d). "
-            "Place the released weights in --checkpoint_dir for metric "
-            "parity.", name, seed)
-        load_jax_params(model, init_vit_params(seed, spec.config))
+            "Place the released weights in %s for metric parity.",
+            name, seed, _DEFAULT_CKPT_DIRS[0])
+        params = init_vit_params(seed, spec.config)
+    load_jax_params(model, params)
     return model.eval().requires_grad_(False), spec.config, spec.family

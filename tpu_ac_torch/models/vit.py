@@ -8,11 +8,17 @@ dict, so one set of weights feeds both packages (``models/convert.py``).
 The math is ``tpu_ac``'s: the patch projection is space-to-depth + one
 matmul, attention is dense matmul -> softmax -> matmul (``_attention_xla``;
 no fused SDPA, so the numerics stay those of the reference), GELU is exact,
-and ``forward`` stops after the deepest tap.  The TPU/XLA-only levers of
+and ``forward`` stops after the deepest tap.  ``attention_impl="flash"``
+runs each block's attention through
+``kernels.attention.flash_attention_impl`` instead (the port of
+``tpu_ac.kernels.attention``): the CUDA flash kernel on the card, its
+plain version on the CPU.  The token
+stream stays at its true length (785 at ViT-B/8, 224 px): the kernel masks
+the ragged tail itself, so ``tpu_ac``'s ``seq_pad`` is not needed, and the
+padded JAX forward equals the unpadded one on the real tokens
+(``tests/test_seq_pad_packed.py``).  The other TPU/XLA-only levers of
 ``tpu_ac`` (``scan_blocks``, ``QKV_SPLIT``, ``ATTENTION_PAD_RAGGED``,
-``seq_pad``, ``remat``) are not carried: they change compilation, not
-results.  ``attention_impl="flash"`` is the opt-in Pallas kernel of
-``tpu_ac.kernels.attention``, not yet ported (ROADMAP Queue 2 item 4).
+``remat``) are not carried: they change compilation, not results.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpu_ac_torch.kernels.attention import flash_attention_impl
 from tpu_ac_torch.ops.interpolate import interpolate_bicubic
 from tpu_ac_torch.ops.linear import torch_linear
 from tpu_ac_torch.ops.normalize import layernorm
@@ -174,16 +181,22 @@ class _Attention(nn.Module):
         self.qkv = _Linear(d, 3 * d, cfg.qkv_bias)
         self.proj = _Linear(d, d)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                attention_impl: str | None = None) -> torch.Tensor:
         b, n, d = x.shape
         nh, hd = self.cfg.num_heads, self.cfg.head_dim
         qkv = self.qkv(x).reshape(b, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0], qkv[1], qkv[2]  # each [B, nh, N, hd]
-        # dense softmax(QK^T * scale) V, the scale applied after the
-        # product as in tpu_ac's _attention_xla
-        attn = torch.matmul(q, k.transpose(-2, -1)) * self.cfg.scale
-        attn = torch.softmax(attn, dim=-1)
-        out = torch.matmul(attn, v)
+        q, k, v = qkv[0], qkv[1], qkv[2]  # each [B, nh, N, hd], strided
+        if attention_impl == "flash":
+            # the kernel reads the strided views as they are and writes
+            # [B, N, nh, hd] storage, so the reshape below copies nothing
+            out = flash_attention_impl(q, k, v, self.cfg.scale)
+        else:
+            # dense softmax(QK^T * scale) V, the scale applied after the
+            # product as in tpu_ac's _attention_xla
+            attn = torch.matmul(q, k.transpose(-2, -1)) * self.cfg.scale
+            attn = torch.softmax(attn, dim=-1)
+            out = torch.matmul(attn, v)
         return self.proj(out.transpose(1, 2).reshape(b, n, d))
 
 
@@ -208,8 +221,9 @@ class _Block(nn.Module):
         self.norm2 = _LayerNorm(d, cfg.ln_eps)
         self.mlp = _Mlp(d, int(d * cfg.mlp_ratio))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
+    def forward(self, x: torch.Tensor,
+                attention_impl: str | None = None) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x), attention_impl)
         return x + self.mlp(self.norm2(x))
 
 
@@ -269,17 +283,16 @@ class ViT(nn.Module):
                 attention_impl: str | None = None) -> dict[int, torch.Tensor]:
         """Raw block outputs (before the final norm) for each tapped index;
         stops after the deepest tap (the reference aborts its forward from
-        the last hook)."""
-        if attention_impl == "flash":
-            raise NotImplementedError(
-                "attention_impl='flash' (tpu_ac.kernels.attention) is not "
-                "ported yet: ROADMAP.md Queue 2 item 4")
+        the last hook).  ``attention_impl``: None (dense) or "flash"."""
+        if attention_impl not in (None, "flash"):
+            raise ValueError(f"attention_impl {attention_impl!r}; want None "
+                             "or 'flash'")
         taps = tuple(taps)
         depth = max(taps) + 1
         x = self.prepare_tokens(images)
         out: dict[int, torch.Tensor] = {}
         for i in range(depth):
-            x = self.blocks[i](x)
+            x = self.blocks[i](x, attention_impl)
             if i in taps:
                 out[i] = x
         return out

@@ -97,7 +97,10 @@ class CategoryEmbedder:
     """Batched embedding of an image set on one device.
 
     ``model`` is a ``ViT`` (f32, any device); it is moved to ``device`` and,
-    for ``precision="bfloat16"``, cast to bf16.
+    for ``precision="bfloat16"``, cast to bf16.  ``attention_impl``: "auto"
+    is the dense attention, as in ``tpu_ac``; "flash" runs every block's
+    attention through the flash kernel (``kernels/attention.py``), on the
+    true token count (no ``seq_pad``).
     """
 
     def __init__(self, model, cfg: PipelineConfig,
@@ -343,6 +346,10 @@ def category_metrics(X: np.ndarray, anomaly_labels: list[str]
 def build_embedder_for_config(cfg: PipelineConfig, *, device="cuda",
                               checkpoint_dir=None, attention_impl="auto",
                               seed: int = 0) -> CategoryEmbedder:
+    """The registry's backbone for ``cfg`` (a checkpoint from
+    ``checkpoint_dir`` or the default cache dirs, else the seeded init) in
+    a ``CategoryEmbedder``; ``attention_impl="flash"`` takes the flash
+    kernel path."""
     model, _backbone_cfg, _family = load_backbone(
         cfg.backbone_name, checkpoint_dir=checkpoint_dir, seed=seed)
     return CategoryEmbedder(model, cfg, device=device,
