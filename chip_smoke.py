@@ -9,10 +9,11 @@ Phases, each fatal on failure:
      process per source, all at once;
   3. kernels: each kernel against its plain PyTorch version on the card.
      min_dists: symmetric and rectangular x f32/bf16c/bf16, at the main
-     path's widths (P=784, D=4096) and at ragged shapes.  flash_attention:
-     bf16 and f32 on the strided q/k/v views of a packed qkv, at the main
-     path's [8, 12, 785, 64], at ragged S = 17, 26, 130, and at S=256 with
-     a segment mask over the last 56 keys;
+     path's widths (P=784, D=4096) and at ragged shapes; its window mode
+     at the four rank placements of tests/test_kernels.py x f32/bf16.
+     flash_attention: bf16 and f32 on the strided q/k/v views of a packed
+     qkv, at the main path's [8, 12, 785, 64], at ragged S = 17, 26, 130,
+     and at S=256 with a segment mask over the last 56 keys;
   4. main path: a synthetic MVTec tree of two categories (84 and 168 test
      images, 256 px sources) through tpu_ac_torch.cli.main with the CLI
      defaults (ViT-B/8 full width on its seeded random init, blocks.10+11,
@@ -31,9 +32,21 @@ Phases, each fatal on failure:
      batches), their pickles checked, bottle's embeddings against the
      dense and f32 embedders of the same weights, embed ms/image flash vs
      dense, sweep img/s, and one profiled sweep;
-  6. timings at the main path's shapes: each kernel beside its bound, its
+  6. mesh path: the same tree through run_category_sweep with the CLI
+     defaults on a virtual dp mesh of 2 x cuda:0 (one process runs the
+     ranks one after another, each at its shape on a real 2-card mesh):
+     dp embed plus the triangle-sharded alpha on the window kernel (2
+     window launches a category and no other kernel, asserted), its
+     pickles checked; per category the dp embeddings against one device's
+     and the triangle W against the symmetric kernel's W without its
+     self-term, within a bound derived from the 1e-4 rule on d2; one
+     category through the rect scheme and one through the sharded
+     supervised path (the rectangular kernel on the mesh); sweep img/s,
+     alpha ms a category, one profiled sweep;
+  7. timings at the main path's shapes: each kernel beside its bound, its
      plain version and a library yardstick (cdist; scaled_dot_product_
-     attention), which the port never calls.
+     attention), which the port never calls; the window kernel at one
+     rank's shape of N = 168 over dp = 2.
 Before the card's line come the run's end-to-end numbers as one summary
 JSON; the line before the last is the kernels JSON; the last line is the
 result JSON.  Exits non-zero, printing no result, without CUDA or outside a
@@ -58,6 +71,7 @@ PEAK_F32_FLOPS = 67e12  # outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 SOURCE = "tpu_ac_torch/csrc/min_dists.cu"
 REPLACES = "tpu_ac/kernels/distances.py:219"
+WINDOW_REPLACES = "tpu_ac/kernels/distances.py:348"
 FLASH_SOURCE = "tpu_ac_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = "tpu_ac/kernels/attention.py:26"
 # B, H, S, Dh of the flash path: ViT-B/8 at 224 px (784 patches + CLS),
@@ -103,6 +117,22 @@ def _time_ms(fn, reps: int, warmup: int = 1) -> float:
 D2_RTOL = 1e-4
 
 
+def _check_d2(torch, got, want, tol, label: str) -> float:
+    """Distances ``got`` against ``want`` on their squares, each entry to
+    its ``tol``; fatal past it, else returns the max abs error."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        _fatal(f"{label}: shape {tuple(got.shape)} or non-finite values")
+    worst = float(((got.square() - want.square()).abs() / tol).max())
+    err = float((got - want).abs().max())
+    print(f"{label}: max_abs_err={err:.3e} (largest distance "
+          f"{float(want.max()):.2f}), max |d2 gap| / tol = {worst:.3f} "
+          f"(tol {D2_RTOL:g} x (|a|^2 + max|b|^2))", flush=True)
+    if not worst <= 1.0:
+        _fatal(f"{label}: the kernel disagrees with its plain version")
+    return err
+
+
 def _check_agree(torch, got, want, Z, bank, label: str) -> float:
     """Kernel output against the plain version's; fatal past the
     tolerance, else returns the max abs error of the distances.
@@ -116,20 +146,50 @@ def _check_agree(torch, got, want, Z, bank, label: str) -> float:
     The check is made on the squares: a distance near 0 (an image against
     itself, two patches of one flat defect) is the square root of that
     cancellation noise and carries no relative accuracy."""
-    torch.cuda.synchronize()
-    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
-        _fatal(f"{label}: shape {tuple(got.shape)} or non-finite values")
     a2 = Z.square().sum(-1)  # [I, P]
     b2 = bank.square().sum(-1).amax(-1)  # [J]
     tol = D2_RTOL * (a2[:, None, :] + b2[None, :, None])
-    worst = float(((got.square() - want.square()).abs() / tol).max())
-    err = float((got - want).abs().max())
-    print(f"{label}: max_abs_err={err:.3e} (largest distance "
-          f"{float(want.max()):.2f}), max |d2 gap| / tol = {worst:.3f} "
-          f"(tol {D2_RTOL:g} x (|a|^2 + max|b|^2))", flush=True)
-    if worst > 1.0:
-        _fatal(f"{label}: the kernel disagrees with its plain version")
+    return _check_d2(torch, got, want, tol, label)
+
+
+def _window_active(torch, n_i: int, n_w: int, window: int):
+    r = torch.arange(n_i, device="cuda")[:, None]
+    w = torch.arange(n_w, device="cuda")[None, :]
+    return (r <= w) & (w < r + window)
+
+
+def _check_window(torch, got, want, Z, bank, window: int,
+                  label: str) -> float:
+    """The window kernel's (row [I, W, P], col [W, I, Q]) against the plain
+    version's on the active tiles, by _check_agree's rule (the col-min of
+    a tile is the row-min of its transpose, so its tolerance swaps the
+    roles of the two norms); the inactive tiles must be +inf on both
+    sides.  Returns the max abs error."""
+    act = _window_active(torch, Z.shape[0], bank.shape[0], window)
+    a2, b2 = Z.square().sum(-1), bank.square().sum(-1)  # [I, P], [W, Q]
+    tols = (D2_RTOL * (a2[:, None, :] + b2.amax(-1)[None, :, None]),
+            D2_RTOL * (b2[:, None, :] + a2.amax(-1)[None, :, None]))
+    err = 0.0
+    for g, w, tol, m, part in zip(got, want, tols, (act, act.t()),
+                                  ("row", "col")):
+        if g.shape != w.shape or not (bool(torch.isinf(g[~m]).all()) and
+                                      bool(torch.isinf(w[~m]).all())):
+            _fatal(f"{label} {part}: shape {tuple(g.shape)} or an inactive "
+                   "tile that is not +inf")
+        err = max(err, _check_d2(torch, g[m], w[m], tol[m],
+                                 f"{label} {part}-mins"))
     return err
+
+
+def _window_inputs(torch, gen, n: int, off: int, n_local: int, p: int,
+                   d: int, scale: float = 1.0):
+    """One dp rank's inputs of the triangle-sharded alpha, as
+    tpu_ac_torch.distributed builds them: its rows off .. off + n_local - 1
+    of n images and the circulant window of the bank after them."""
+    Z = torch.randn(n, p, d, device="cuda", generator=gen) * scale
+    h = n // 2
+    idx = (off + 1 + torch.arange(n_local - 1 + h, device="cuda")) % n
+    return Z[off:off + n_local].contiguous(), Z[idx].contiguous(), h
 
 
 def phase_kernels(torch, dist):
@@ -159,6 +219,28 @@ def phase_kernels(torch, dist):
                     f"q={q} d={d}")
                 errs[mode] = max(errs[mode], err)
     return errs
+
+
+def phase_window_kernel(torch, dist) -> float:
+    """The window mode against its plain version at the placements of
+    tests/test_kernels.py TestWindowMode (interior, wrap around the bank
+    end, odd N, one row), f32 and bf16, P = 20 or 784; returns the max abs
+    error.  The full-width rank is checked in phase_window_timing."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    err = 0.0
+    for n, off, n_local, p, d in ((8, 2, 2, 20, 96), (8, 6, 2, 784, 256),
+                                  (7, 0, 3, 20, 96), (8, 3, 1, 130, 96)):
+        z_loc, bank_w, h = _window_inputs(torch, gen, n, off, n_local, p, d)
+        for prec in ("f32", "bf16"):
+            got = dist.min_dists_window(z_loc, bank_w, window=h,
+                                        precision=prec)
+            want = dist.min_dists_window_plain(z_loc, bank_w, window=h,
+                                               precision=prec)
+            err = max(err, _check_window(
+                torch, got, want, z_loc, bank_w, h,
+                f"kernel window {prec:5s} n={n} off={off} "
+                f"n_local={n_local} p={p} d={d}"))
+    return err
 
 
 def _bound_ms(n_pairs: int, p: int, q: int, d: int, passes: int,
@@ -220,6 +302,54 @@ def phase_timing(torch, dist, n_sym: int, n_rect: tuple[int, int]):
         del Z, bank, zf, bf
         torch.cuda.empty_cache()
     return out
+
+
+def phase_window_timing(torch, dist, n: int, dp: int) -> dict:
+    """The window kernel at one rank's shape of the mesh path (rank 1 of
+    dp over N images, bf16: the rank whose window wraps around the bank
+    end): agreement, time, bound, plain, and cdist + both mins over the
+    active tiles as the yardstick."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    p, d = 784, 4096
+    n_local = n // dp
+    z_loc, bank_w, h = _window_inputs(torch, gen, n, n_local, n_local, p, d,
+                                      scale=0.5)
+    n_w = bank_w.shape[0]
+    n_pairs = len(dist.window_pairs(n_local, n_w, h))
+    # f32 inputs read once; row [I, W, P] and col [W, I, Q] f32 written
+    bound, bound_by = _bound_ms(n_pairs, p, p, d, 1,
+                                (n_local + n_w) * p * d * 4,
+                                2 * n_local * n_w * p * 4)
+    got = dist.min_dists_window(z_loc, bank_w, window=h, precision="bf16")
+    want = dist.min_dists_window_plain(z_loc, bank_w, window=h,
+                                       precision="bf16")
+    err = _check_window(torch, got, want, z_loc, bank_w, h,
+                        f"kernel window bf16 I={n_local} W={n_w} H={h} "
+                        f"p=q={p} d={d} (a rank of the mesh path)")
+    del got, want
+    ms = _time_ms(lambda: dist.min_dists_window(
+        z_loc, bank_w, window=h, precision="bf16"), reps=3)
+    plain_ms = _time_ms(lambda: dist.min_dists_window_plain(
+        z_loc, bank_w, window=h, precision="bf16"), reps=1, warmup=0)
+    zf, bf = (x.to(torch.bfloat16).float() for x in (z_loc, bank_w))
+
+    def library():
+        for r in range(n_local):
+            hi = min(r + h, n_w)
+            dd = torch.cdist(zf[r:r + 1].expand(hi - r, -1, -1), bf[r:hi])
+            dd.amin(-1)
+            dd.amin(-2)
+
+    library_ms = _time_ms(library, reps=1, warmup=0)
+    print(f"timing window bf16 I={n_local} W={n_w} H={h} ({n_pairs} "
+          f"tiles) P=Q={p} D={d}: kernel {ms:.2f} ms, bound {bound:.2f} ms "
+          f"({bound_by}), plain {plain_ms:.2f} ms, cdist {library_ms:.2f} "
+          f"ms, {2.0 * p * p * d * n_pairs / ms / 1e9:.1f} TFLOP/s",
+          flush=True)
+    del z_loc, bank_w, zf, bf
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                library_ms=library_ms, max_abs_err=err, n_pairs=n_pairs)
 
 
 def _packed_qkv(torch, gen, b: int, h: int, s: int, dh: int, dtype):
@@ -356,7 +486,8 @@ def _check_pickles(out_dir: str, cfg, supervised: str, cats,
 
     from tpu_ac_torch.pipeline import artifact_dir, load_alpha_X
 
-    d = artifact_dir(out_dir, "mvtec_ad", "dino_vitbase8", supervised, cfg)
+    d = artifact_dir(out_dir, "mvtec_ad", cfg.backbone_name, supervised,
+                     cfg)
     for cat in cats:
         alpha, X = load_alpha_X(os.path.join(
             d, f"matrix_alpha_X_{cat}_{supervised}.pickle"))
@@ -636,6 +767,174 @@ def phase_flash_path(torch, dist, attn, work: str, root: str,
                 alpha_gap=alpha_gap)
 
 
+def _d_bound(torch, mins, Z, bank):
+    """Per entry of ``mins`` [I, J, P], how far another kernel's min
+    distance from the same bf16 products may lie: its d2 agrees to
+    tol = 1e-4 (|a|^2 + max|b|^2) (_check_agree), so the distance to
+    min(sqrt(tol), tol / d), since |sqrt(x) - sqrt(y)| <= sqrt|x - y| and
+    <= |x - y| / sqrt(y).  A mean over j of such entries moves by at most
+    the mean of their bounds, a min by at most their max."""
+    a2 = Z.square().sum(-1)  # [I, P]
+    b2 = bank.square().sum(-1).amax(-1)  # [J]
+    tol = D2_RTOL * (a2[:, None, :] + b2[None, :, None])
+    return torch.minimum(tol.sqrt(), tol / mins.clamp_min(1e-30))
+
+
+def _hold_w(torch, got, want, bound, label: str) -> float:
+    """|got - want| <= bound everywhere; fatal past it, else returns the
+    largest gap over its bound."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        _fatal(f"{label}: shape {tuple(got.shape)} or non-finite values")
+    gap = (got - want).abs()
+    worst = float((gap / bound).max())
+    print(f"{label}: max |W gap| {float(gap.max()):.3e} (max W "
+          f"{float(want.max()):.3e}), max gap / bound = {worst:.3e}",
+          flush=True)
+    if not worst <= 1.0:
+        _fatal(f"{label}: W off by more than the 1e-4 rule on d2 allows")
+    return worst
+
+
+def phase_mesh_path(torch, dist, attn, work: str, root: str,
+                    sizes: dict[str, int], dp: int = 2) -> dict:
+    """The multi-device sweep on a virtual mesh of dp x cuda:0: dp embed
+    and the triangle-sharded alpha through run_category_sweep (CLI
+    defaults), then its W, embeddings and the other sharded schemes held
+    to the single-device kernels'."""
+    from tpu_ac_torch.data.mvtec import DatasetSplit, MVTecDataset
+    from tpu_ac_torch.distributed import (
+        Mesh,
+        shard_batch,
+        sharded_weight_distance_supervised,
+        sharded_weight_distance_unsupervised,
+    )
+    from tpu_ac_torch.pipeline import (
+        PipelineConfig,
+        build_embedder_for_config,
+        compute_alpha_X,
+        run_category_sweep,
+    )
+
+    cats = list(sizes)
+    mesh = Mesh(["cuda:0"] * dp)
+    cfg = PipelineConfig(batch_size=8, precision="bfloat16")
+    emb = build_embedder_for_config(cfg, device="cuda", mesh=mesh)
+    if emb.mesh is not mesh:
+        _fatal("the embedder did not take the mesh")
+    out_dir = os.path.join(work, "out_mesh")
+    sweep_s = []
+    for _ in range(2):  # the first is warm-up; both are counted
+        dist.LAUNCHES = dist.WINDOW_LAUNCHES = attn.LAUNCHES = 0
+        t0 = time.perf_counter()
+        for _c, _r in run_category_sweep(root, cats, cfg, emb,
+                                         output_dir=out_dir):
+            pass
+        sweep_s.append(time.perf_counter() - t0)
+        launches = {"min_dists_window": dist.WINDOW_LAUNCHES,
+                    "min_dists_symmetric_rectangular": dist.LAUNCHES,
+                    "flash_attention": attn.LAUNCHES}
+        print(f"mesh sweep (dp={dp} on cuda:0): launches {launches}",
+              flush=True)
+        if launches != {"min_dists_window": dp * len(cats),
+                        "min_dists_symmetric_rectangular": 0,
+                        "flash_attention": 0}:
+            _fatal(f"the mesh sweep launched {launches}; want "
+                   f"{dp * len(cats)} window launches ({dp} a category) "
+                   "and no other kernel")
+    window_launches = launches["min_dists_window"]
+    _check_pickles(out_dir, cfg, "unsupervised", cats, sizes)
+
+    # per category: the dp embeddings against one device's, the triangle W
+    # against the symmetric kernel's without its self-term
+    single = build_embedder_for_config(cfg, device="cuda", mesh=None)
+    f32 = build_embedder_for_config(
+        PipelineConfig(batch_size=8, precision="highest"), device="cuda",
+        mesh=None)
+    images = {c: MVTecDataset(root, classname=c, split=DatasetSplit.TEST)
+              .load_all_images() for c in cats}
+    w_worst, embed_gaps = 0.0, {}
+    for c in cats:
+        Z = emb(images[c])
+        Z1 = single(images[c])
+        gap, noise = _rel_gap(torch, Z, Z1), _rel_gap(torch, Z1,
+                                                      f32(images[c]))
+        embed_gaps[c] = gap
+        print(f"{c}: dp embeddings vs one device, relative L2 {gap:.3e} "
+              f"(one device bf16 vs f32 {noise:.3e})", flush=True)
+        if not gap <= 3.0 * noise:
+            _fatal(f"{c}: dp embeddings {gap:.3e} from one device's, over "
+                   f"3 x the bf16 rounding noise {noise:.3e}")
+        n = len(Z)
+        z_sh, _ = shard_batch(mesh, Z)
+        w_tri = torch.cat(sharded_weight_distance_unsupervised(
+            mesh, z_sh, n_valid=n, precision="bf16"))[:n]
+        mins = dist.min_dists_all_pairs(Z, Z, precision="bf16",
+                                        symmetric=True)
+        idx = torch.arange(n, device="cuda")
+        w_sym = (mins.sum(1) - mins[idx, idx]) / (n - 1)
+        per = _d_bound(torch, mins, Z, Z)
+        w_worst = max(w_worst, _hold_w(
+            torch, w_tri, w_sym,
+            (per.sum(1) - per[idx, idx]) / (n - 1),
+            f"{c} (N={n}): triangle W on the mesh vs the symmetric "
+            "kernel's without the self-term"))
+        if c == cats[0]:
+            # the rect scheme and the sharded supervised path: the
+            # rectangular kernel on the mesh
+            w_rect = torch.cat(sharded_weight_distance_unsupervised(
+                mesh, z_sh, n_valid=n, precision="bf16", scheme="rect"))[:n]
+            _hold_w(torch, w_rect, mins.sum(1) / (n - 1),
+                    per.sum(1) / (n - 1),
+                    f"{c}: rect-scheme W on the mesh vs the symmetric "
+                    "kernel's")
+            train = MVTecDataset(root, classname=c,
+                                 split=DatasetSplit.TRAIN).load_all_images()
+            Zt = emb(train)
+            w_sup = torch.cat(sharded_weight_distance_supervised(
+                mesh, z_sh, Zt, precision="bf16"))[:n]
+            mins_t = dist.min_dists_all_pairs(Z, Zt, precision="bf16")
+            _hold_w(torch, w_sup, mins_t.amin(1),
+                    _d_bound(torch, mins_t, Z, Zt).amax(1),
+                    f"{c}: sharded supervised W vs the rectangular "
+                    f"kernel's (J={len(Zt)})")
+            a_m, _ = compute_alpha_X(Z, "supervised", 1.0, Zt,
+                                     precision="bf16", use_mesh=True,
+                                     mesh=mesh)
+            a_1, _ = compute_alpha_X(Z, "supervised", 1.0, Zt,
+                                     precision="bf16")
+            print(f"{c}: supervised alpha on the mesh vs one device, max "
+                  f"relative gap {float(((a_m - a_1).abs() / a_1).max()):.3e}",
+                  flush=True)
+            del train, Zt, mins_t, w_sup, w_rect
+        del Z, Z1, z_sh, mins, per, w_tri, w_sym
+    del single, f32
+
+    # alpha ms a category on the mesh, and one profiled sweep
+    alpha_ms = {}
+    for c in cats:
+        Z = emb(images[c])
+        for rep in range(2):  # the first is warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            compute_alpha_X(Z, "unsupervised", 1.0, precision="bf16",
+                            use_mesh=True, mesh=mesh)
+            torch.cuda.synchronize()
+            alpha_ms[c] = (time.perf_counter() - t0) * 1e3
+        del Z
+    n_img = sum(sizes.values())
+    print(f"mesh path (dp={dp} on cuda:0, ranks one after another): sweep "
+          f"{n_img / sweep_s[-1]:.1f} img/s over {n_img} images (sweeps "
+          f"{sweep_s} s), alpha " + ", ".join(
+              f"{c} (N={sizes[c]}) {ms:.1f} ms" for c, ms in alpha_ms.items()),
+          flush=True)
+    busy = _profile_sweep(
+        torch, lambda: run_category_sweep(root, cats, cfg, emb), sweep_s[-1])
+    return dict(launches=window_launches, sweep_img_s=n_img / sweep_s[-1],
+                alpha_ms=alpha_ms, w_gap_over_bound=w_worst, busy_pct=busy,
+                embed_gaps=embed_gaps)
+
+
 def main() -> None:
     if not os.path.isfile(os.path.join(HERE, "tpu_ac_torch",
                                        "kernels", "distances.py")):
@@ -646,6 +945,7 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         _fatal("torch.cuda.is_available() is false: no card, no result")
+    t_start = time.perf_counter()
     card = _card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}; torch {torch.__version__}, CUDA "
@@ -668,6 +968,7 @@ def main() -> None:
     # the plain versions' f32 products: full f32, as the tolerances assume
     torch.backends.cuda.matmul.allow_tf32 = False
     errs = phase_kernels(torch, dist)
+    window_err = phase_window_kernel(torch, dist)
     flash_err = phase_flash_kernel(torch, attn)
     sizes = {"bottle": 84, "screw": 168}
     work = os.path.join(HERE, "build", "smoke")
@@ -677,11 +978,14 @@ def main() -> None:
         root = _make_tree(work, sizes)
         launches, run = phase_main_path(torch, dist, attn, work, root, sizes)
         flash_run = phase_flash_path(torch, dist, attn, work, root, sizes)
+        mesh_run = phase_mesh_path(torch, dist, attn, work, root, sizes)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # the supervised run pads its 84 queries to the 32-image bucket (96)
     timing = phase_timing(torch, dist, n_sym=max(sizes.values()),
                           n_rect=(96, min(sizes.values())))
+    window_timing = phase_window_timing(torch, dist, n=max(sizes.values()),
+                                        dp=2)
     flash_timing = phase_flash_timing(torch, attn)
 
     print(f"main path on {kind} ({card}): embed "
@@ -704,6 +1008,13 @@ def main() -> None:
             "max_abs_err": max(errs[mode], t["max_abs_err"]), "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    t = window_timing
+    kernels.append({
+        "name": "min_dists_window", "route": "cuda", "source": SOURCE,
+        "replaces": WINDOW_REPLACES, "launches": mesh_run["launches"],
+        "max_abs_err": max(window_err, t["max_abs_err"]), "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     t = flash_timing
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
@@ -711,6 +1022,11 @@ def main() -> None:
         "max_abs_err": max(flash_err, t["max_abs_err"]), "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    print(f"mesh path: alpha " + ", ".join(
+        f"{c} {ms:.1f} ms" for c, ms in mesh_run["alpha_ms"].items())
+        + f" a category, window kernel {window_timing['ms']:.2f} ms a rank, "
+        f"busy {mesh_run['busy_pct']:.1f}%; chip_smoke.py took "
+        f"{time.perf_counter() - t_start:.0f} s", flush=True)
     # the end-to-end numbers of this run on one short line, so that they
     # stay in the last lines of the output beside the kernels line
     def r4(x: float) -> float:
@@ -736,7 +1052,11 @@ def main() -> None:
             float(f"{g:.4g}") for g in flash_run["rel_gaps"]],
         "alpha_gap_flash_dense": float(f"{flash_run['alpha_gap']:.4g}"),
         "convert_s": r4(flash_run["convert_s"]),
-        "peak_gib": r4(run["peak_gib"])}}))
+        "peak_gib": r4(run["peak_gib"]),
+        "mesh": {"sweep_img_s": r4(mesh_run["sweep_img_s"]),
+                 "window_ms": r4(window_timing["ms"]),
+                 "w_gap_over_bound": float(
+                     f"{mesh_run['w_gap_over_bound']:.4g}")}}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

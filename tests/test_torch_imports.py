@@ -40,7 +40,7 @@ def test_scan_sees_the_package():
     assert "chip_smoke.py" in names
     for mod in ("kernels/distances.py", "kernels/attention.py",
                 "models/convert.py", "models/manifest.py", "cli/convert.py",
-                "hub.py"):
+                "hub.py", "distributed/__init__.py", "distributed/mesh.py"):
         assert f"tpu_ac_torch/{mod}" in names
 
 

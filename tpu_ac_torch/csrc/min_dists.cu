@@ -1,9 +1,10 @@
 // Tiled pairwise-distance + min kernel for Hopper: the alpha hot loop.
 //
 // Replaces tpu_ac/kernels/distances.py `_min_dists_kernel` (launched by
-// `_min_dists_padded` via `min_dists_all_pairs`), symmetric and rectangular
-// modes.  For query images i with patches A[i] [P, D] and bank images j with
-// patches B[j] [Q, D]:
+// `_min_dists_padded`, distances.py:219) in its three modes: symmetric and
+// rectangular (`min_dists_all_pairs`, :299) and window (`min_dists_window`,
+// :348).  For query images i with patches A[i] [P, D] and bank images j
+// with patches B[j] [Q, D]:
 //
 //     out[i, j, p] = min_q sqrt(max(a2[i,p] - 2 A[i,p].B[j,q] + b2[j,q], 0))
 //
@@ -17,23 +18,36 @@
 // (BK=32 chunks through shared memory, nvcuda::wmma 16x16x16), stages the
 // f32 dot tile in shared memory and reduces it:
 //   - the row-min over q stays in registers across Q tiles (no atomics);
-//   - symmetric mode (bank is the query set) launches only the pairs i <= j
-//     and, for i < j, also emits the col-min over p into out[j, i, q]: the
-//     (j, i) tile is this tile transposed.  Col-mins of the P tiles of a pair
-//     combine by atomicMin on the bits of the clamped d2 (every value is
-//     >= 0, so int order is float order) into an output that starts at +inf;
-//     a finishing pass takes the sqrt of those entries (sqrt is monotone).
+//   - the pairs come as a list from the wrapper, so each mode launches only
+//     the tiles it needs;
+//   - symmetric mode (bank is the query set) launches the pairs i <= j and,
+//     for i < j, also emits the col-min over p into out[j, i, q]: the
+//     (j, i) tile is this tile transposed;
+//   - window mode (the triangle-sharded alpha of one dp rank,
+//     tpu_ac/distributed/mesh.py:97-151) launches the pairs r <= w <
+//     min(r + H, W) of a query block [I, P, D] against a circulant window
+//     of the bank [W, Q, D] and emits every tile's col-min into a separate
+//     output col[w, r, q] of shape [W, I, Q] (no tile pairs an image with
+//     itself: the pair distance w - r + 1 lies in [1, H] and H < N).
+//   Col-mins of the P tiles of a pair combine by atomicMin on the bits of
+//   the clamped d2 (every value is >= 0, so int order is float order) into
+//   an output that starts at +inf; a finishing pass takes the sqrt of those
+//   entries (sqrt is monotone).  In window mode the entries of inactive
+//   tiles stay +inf in both outputs ("undefined", as in tpu_ac).
 // Padded rows/columns of the last tiles load as zeros and are masked out of
 // both mins.
 //
 // Bound.  2 * P * Q * D FLOPs per active pair and pass on the bf16 tensor
-// cores (989 TFLOP/s dense on an H100 SXM at 700 W).  The main path (N = 167
-// images, symmetric, "bf16") is 14,028 pairs x 5.03 GFLOP = 70.6 TFLOP, i.e.
-// >= 71 ms; "f32"/"bf16c" do 3 passes, 3x that.  Bytes are no bound in
-// principle (each image is 6.4 MB of bf16), but this first design re-reads
-// its A tile from L2/HBM once per Q tile and pads 784 to 896 on both tile
-// axes (1.31x the FLOPs): a later PR moves it to wgmma + TMA with a tile
-// order that keeps operands in the 50 MB L2.
+// cores (989 TFLOP/s dense on an H100 SXM at 700 W).  The main path's
+// larger category (N = 168 images, symmetric, "bf16", the i <= j pairs with
+// the diagonal) is 14,196 pairs x 5.035 GFLOP = 71.5 TFLOP, i.e. >= 72.3
+// ms; "f32"/"bf16c" do 3 passes, 3x that.  Window mode at N = 168 over
+// dp = 2 ranks (I = 84, W = 167, H = 84) is 7,056 active tiles a rank x
+// 5.035 GFLOP = 35.5 TFLOP, i.e. >= 35.9 ms a rank in "bf16".  Bytes are no
+// bound in principle (each image is 6.4 MB of bf16), but this first design
+// re-reads its A tile from L2/HBM once per Q tile and pads 784 to 896 on
+// both tile axes (1.31x the FLOPs): a later PR moves it to wgmma + TMA with
+// a tile order that keeps operands in the 50 MB L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,15 +85,18 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
-template <bool COMP, bool SYM>
+enum Mode { RECT = 0, SYM = 1, WIN = 2 };
+
+template <bool COMP, int MODE>
 __global__ void __launch_bounds__(THREADS)
 min_dists_kernel(const __nv_bfloat16* __restrict__ a_hi,
                  const __nv_bfloat16* __restrict__ a_lo,
                  const __nv_bfloat16* __restrict__ b_hi,
                  const __nv_bfloat16* __restrict__ b_lo,
                  const float* __restrict__ a2, const float* __restrict__ b2,
-                 const int* __restrict__ pairs, float* __restrict__ out,
-                 int n_i, int n_j, int p, int q, int d) {
+                 const int* __restrict__ pairs,
+                 float* out,  // not __restrict__: col == out in symmetric mode
+                 float* col, int n_i, int n_j, int p, int q, int d) {
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* as_hi = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* as_lo = as_hi + BM * LDS;
@@ -95,7 +112,7 @@ min_dists_kernel(const __nv_bfloat16* __restrict__ a_hi,
   const int p0 = (blockIdx.x % n_pt) * BM;
   const int i = pairs[2 * pair];
   const int j = pairs[2 * pair + 1];
-  const bool emit_col = SYM && i != j;
+  const bool emit_col = MODE == WIN || (MODE == SYM && i != j);
 
   const __nv_bfloat16* ai_hi = a_hi + (size_t)i * p * d;
   const __nv_bfloat16* ai_lo = COMP ? a_lo + (size_t)i * p * d : nullptr;
@@ -211,7 +228,7 @@ min_dists_kernel(const __nv_bfloat16* __restrict__ a_hi,
       if (tid < BN && q0 + tid < q) {
         float v = fminf(colpart[0][tid], colpart[1][tid]);
         v = v > 0.f ? v : 0.f;
-        atomicMin(reinterpret_cast<int*>(out) + ((size_t)j * n_i + i) * p +
+        atomicMin(reinterpret_cast<int*>(col) + ((size_t)j * n_i + i) * q +
                       q0 + tid,
                   __float_as_int(v));
       }
@@ -234,29 +251,55 @@ __global__ void sqrt_lower_kernel(float* __restrict__ out, int n, int p) {
   if (ab / n > ab % n) out[idx] = sqrtf(out[idx]);
 }
 
-template <bool COMP, bool SYM>
+// col[:] = sqrt(col[:]): the col-mins of window mode (+inf stays +inf).
+__global__ void sqrt_all_kernel(float* __restrict__ col, size_t total) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx < total) col[idx] = sqrtf(col[idx]);
+}
+
+template <bool COMP, int MODE>
 cudaError_t launch(const void* a_hi, const void* a_lo, const void* b_hi,
                    const void* b_lo, const float* a2, const float* b2,
-                   const int* pairs, int n_pairs, float* out, int n_i,
-                   int n_j, int p, int q, int d, cudaStream_t stream) {
+                   const int* pairs, int n_pairs, float* out, float* col,
+                   int n_i, int n_j, int p, int q, int d,
+                   cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(&min_dists_kernel<COMP, SYM>),
+      reinterpret_cast<const void*>(&min_dists_kernel<COMP, MODE>),
       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)n_pairs * ((p + BM - 1) / BM);
-  min_dists_kernel<COMP, SYM><<<(unsigned)blocks, THREADS, SMEM_BYTES,
-                                stream>>>(
+  min_dists_kernel<COMP, MODE><<<(unsigned)blocks, THREADS, SMEM_BYTES,
+                                 stream>>>(
       static_cast<const __nv_bfloat16*>(a_hi),
       static_cast<const __nv_bfloat16*>(a_lo),
       static_cast<const __nv_bfloat16*>(b_hi),
-      static_cast<const __nv_bfloat16*>(b_lo), a2, b2, pairs, out, n_i, n_j,
-      p, q, d);
+      static_cast<const __nv_bfloat16*>(b_lo), a2, b2, pairs, out, col, n_i,
+      n_j, p, q, d);
   err = cudaGetLastError();
-  if (err != cudaSuccess || !SYM) return err;
-  const size_t total = (size_t)n_i * n_j * p;
-  sqrt_lower_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      out, n_i, p);
+  if (err != cudaSuccess || MODE == RECT) return err;
+  if (MODE == SYM) {
+    const size_t total = (size_t)n_i * n_j * p;
+    sqrt_lower_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+        out, n_i, p);
+  } else {
+    const size_t total = (size_t)n_j * n_i * q;
+    sqrt_all_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+        col, total);
+  }
   return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch_mode(int compensated, const void* a_hi, const void* a_lo,
+                        const void* b_hi, const void* b_lo, const float* a2,
+                        const float* b2, const int* pairs, int n_pairs,
+                        float* out, float* col, int n_i, int n_j, int p,
+                        int q, int d, cudaStream_t s) {
+  return compensated
+             ? launch<true, MODE>(a_hi, a_lo, b_hi, b_lo, a2, b2, pairs,
+                                  n_pairs, out, col, n_i, n_j, p, q, d, s)
+             : launch<false, MODE>(a_hi, a_lo, b_hi, b_lo, a2, b2, pairs,
+                                   n_pairs, out, col, n_i, n_j, p, q, d, s);
 }
 
 }  // namespace
@@ -264,33 +307,34 @@ cudaError_t launch(const void* a_hi, const void* a_lo, const void* b_hi,
 // C interface bound with ctypes by tpu_ac_torch/kernels/distances.py.
 // a_* [n_i, p, d] and b_* [n_j, q, d] bf16 (d a multiple of 32, rows 16-byte
 // aligned), a2 [n_i, p] and b2 [n_j, q] f32, pairs [n_pairs, 2] int32 of
-// (i, j), out [n_i, n_j, p] f32 (symmetric: pre-filled with +inf, and
-// n_i == n_j, p == q).  a_lo/b_lo are read only when compensated != 0.
-// Launches on `stream`, does not synchronize, returns cudaGetLastError().
+// (i, j), out [n_i, n_j, p] f32.  mode 0 (rectangular): out only.  mode 1
+// (symmetric: n_i == n_j, p == q): out pre-filled with +inf, col == out.
+// mode 2 (window): out and col [n_j, n_i, q] pre-filled with +inf.  a_lo/b_lo
+// are read only when compensated != 0.  Launches on `stream`, does not
+// synchronize, returns cudaGetLastError().
 extern "C" int tpu_ac_min_dists(const void* a_hi, const void* a_lo,
                                 const void* b_hi, const void* b_lo,
                                 const float* a2, const float* b2,
                                 const int* pairs, int n_pairs, float* out,
-                                int n_i, int n_j, int p, int q, int d,
-                                int compensated, int symmetric,
+                                float* col, int n_i, int n_j, int p, int q,
+                                int d, int compensated, int mode,
                                 void* stream) {
   if (n_pairs <= 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (compensated) {
-    err = symmetric ? launch<true, true>(a_hi, a_lo, b_hi, b_lo, a2, b2,
-                                         pairs, n_pairs, out, n_i, n_j, p, q,
-                                         d, s)
-                    : launch<true, false>(a_hi, a_lo, b_hi, b_lo, a2, b2,
-                                          pairs, n_pairs, out, n_i, n_j, p, q,
-                                          d, s);
-  } else {
-    err = symmetric ? launch<false, true>(a_hi, a_lo, b_hi, b_lo, a2, b2,
-                                          pairs, n_pairs, out, n_i, n_j, p, q,
-                                          d, s)
-                    : launch<false, false>(a_hi, a_lo, b_hi, b_lo, a2, b2,
-                                           pairs, n_pairs, out, n_i, n_j, p,
-                                           q, d, s);
+  switch (mode) {
+    case RECT:
+      return (int)launch_mode<RECT>(compensated, a_hi, a_lo, b_hi, b_lo, a2,
+                                    b2, pairs, n_pairs, out, col, n_i, n_j,
+                                    p, q, d, s);
+    case SYM:
+      return (int)launch_mode<SYM>(compensated, a_hi, a_lo, b_hi, b_lo, a2,
+                                   b2, pairs, n_pairs, out, out, n_i, n_j,
+                                   p, q, d, s);
+    case WIN:
+      return (int)launch_mode<WIN>(compensated, a_hi, a_lo, b_hi, b_lo, a2,
+                                   b2, pairs, n_pairs, out, col, n_i, n_j,
+                                   p, q, d, s);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)err;
 }

@@ -1,6 +1,7 @@
 """Pairwise-distance + min for the alpha weights: wrapper of the CUDA kernel
 ``csrc/min_dists.cu`` and its plain PyTorch version (port of
-``tpu_ac.kernels.distances.min_dists_all_pairs``).
+``tpu_ac.kernels.distances``: ``min_dists_all_pairs``, ``min_dists_window``
+and ``min_dists_to_sets``).
 
     mins[i, j, p] = min_q || Z[i, p] - bank[j, q] ||
 
@@ -15,24 +16,30 @@ Precision modes, as in ``tpu_ac``:
 
 ``symmetric=True`` asserts ``bank`` is ``Z`` (the unsupervised alpha): the
 kernel computes only the i <= j pairs and emits both their row- and
-col-mins.  A CUDA tensor launches the kernel or raises; a CPU tensor runs
-``min_dists_all_pairs_plain``, the same arithmetic as plain torch ops
-(bf16 parts upcast to f32, f32 matmul; products of bf16 values are exact
-in f32, so only the summation order differs from the kernel).  The TPU
-tiling knobs (``d_tile``, ``ti``, ``interpret``) are not carried.
+col-mins.  ``min_dists_window`` is the same kernel over the circulant
+window of one dp rank of the triangle-sharded alpha
+(``tpu_ac_torch.distributed``).  A CUDA tensor launches the kernel or
+raises; a CPU tensor runs the plain version (``*_plain``), the same
+arithmetic as plain torch ops (bf16 parts upcast to f32, f32 matmul;
+products of bf16 values are exact in f32, so only the summation order
+differs from the kernel).  The TPU tiling knobs (``d_tile``, ``ti``,
+``interpret``) are not carried.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 PRECISIONS = ("f32", "bf16c", "bf16")
 
-# kernel launches made by min_dists_all_pairs (CUDA tensors only)
+# kernel launches (CUDA tensors only) made by min_dists_all_pairs, in the
+# symmetric and rectangular modes, and by min_dists_window
 LAUNCHES = 0
+WINDOW_LAUNCHES = 0
 
 _BK = 32  # the kernel's D chunk: D is zero-padded to a multiple of it
 
@@ -70,6 +77,25 @@ def _prep(x: torch.Tensor, precision: str):
     return _split_hi_lo(x), x.square().sum(-1)
 
 
+def _plain_d2(Z: torch.Tensor, bank: torch.Tensor, precision: str):
+    """d2(i, js) -> [len(js), P, Q] squared distances of query image i
+    against bank images js, in the kernel's arithmetic."""
+    z_parts, a2 = _prep(Z, precision)
+    b_parts, b2 = _prep(bank, precision)
+    zf = [t.to(torch.float32) for t in z_parts]
+    bt = [t.to(torch.float32).transpose(1, 2) for t in b_parts]  # [J, D, Q]
+    terms = [(0, 0)] if precision == "bf16" else [(0, 0), (0, 1), (1, 0)]
+
+    def d2(i: int, js: slice) -> torch.Tensor:
+        acc = None
+        for za, bb in terms:
+            t = torch.matmul(zf[za][i], bt[bb][js])  # [J', P, Q]
+            acc = t if acc is None else acc + t
+        return a2[i][None, :, None] - 2.0 * acc + b2[js][:, None, :]
+
+    return d2
+
+
 def min_dists_all_pairs_plain(Z: torch.Tensor, bank: torch.Tensor, *,
                               precision: str = "f32",
                               symmetric: bool = False) -> torch.Tensor:
@@ -77,21 +103,53 @@ def min_dists_all_pairs_plain(Z: torch.Tensor, bank: torch.Tensor, *,
     time (bounded memory).  ``symmetric`` only validates: every pair is
     computed directly."""
     _check(Z, bank, precision, symmetric)
-    z_parts, a2 = _prep(Z, precision)
-    b_parts, b2 = _prep(bank, precision)
-    zf = [t.to(torch.float32) for t in z_parts]
-    bt = [t.to(torch.float32).transpose(1, 2) for t in b_parts]  # [J, D, Q]
-    terms = [(0, 0)] if precision == "bf16" else [(0, 0), (0, 1), (1, 0)]
+    d2 = _plain_d2(Z, bank, precision)
     out = torch.empty(Z.shape[0], bank.shape[0], Z.shape[1],
                       dtype=torch.float32, device=Z.device)
     for i in range(Z.shape[0]):
-        acc = None
-        for za, bb in terms:
-            t = torch.matmul(zf[za][i], bt[bb])  # [J, P, Q]
-            acc = t if acc is None else acc + t
-        d2 = a2[i][None, :, None] - 2.0 * acc + b2[:, None, :]
-        out[i] = d2.amin(dim=-1).clamp_min(0.0).sqrt()
+        out[i] = d2(i, slice(None)).amin(dim=-1).clamp_min(0.0).sqrt()
     return out
+
+
+def _check_window(Z: torch.Tensor, bank_window: torch.Tensor, window: int,
+                  precision: str) -> None:
+    _check(Z, bank_window, precision, False)
+    if not 1 <= window:
+        raise ValueError(f"window must be >= 1, got {window}")
+
+
+def window_pairs(n_i: int, n_w: int, window: int) -> np.ndarray:
+    """The active tiles (r, w), r <= w < min(r + window, n_w), of a window
+    sweep, r-major: [n_pairs, 2] int32, C-contiguous."""
+    r = np.arange(n_i)[:, None]
+    w = np.arange(n_w)[None, :]
+    # argwhere's result is a transposed view: the kernel reads row-major
+    return np.ascontiguousarray(np.argwhere((r <= w) & (w < r + window)),
+                                dtype=np.int32)
+
+
+def min_dists_window_plain(Z: torch.Tensor, bank_window: torch.Tensor, *,
+                           window: int, precision: str = "f32"
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The window kernel's arithmetic as plain torch ops: (row [I, W, P],
+    col [W, I, Q]) on the active tiles, +inf elsewhere, as the kernel
+    leaves them."""
+    _check_window(Z, bank_window, window, precision)
+    n_i, p, _ = Z.shape
+    n_w, q, _ = bank_window.shape
+    d2 = _plain_d2(Z, bank_window, precision)
+    row = torch.full((n_i, n_w, p), float("inf"), dtype=torch.float32,
+                     device=Z.device)
+    col = torch.full((n_w, n_i, q), float("inf"), dtype=torch.float32,
+                     device=Z.device)
+    for r in range(n_i):
+        lo, hi = r, min(r + window, n_w)
+        if lo >= hi:
+            continue
+        t = d2(r, slice(lo, hi))  # [hi - lo, P, Q]
+        row[r, lo:hi] = t.amin(dim=-1).clamp_min(0.0).sqrt()
+        col[lo:hi, r] = t.amin(dim=-2).clamp_min(0.0).sqrt()
+    return row, col
 
 
 _FN = None
@@ -104,21 +162,30 @@ def _kernel_fn():
 
         fn = library("min_dists").tpu_ac_min_dists
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, vp,
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, vp, vp,
                        ci, ci, ci, ci, ci, ci, ci, vp]
         fn.restype = ci
         _FN = fn
     return _FN
 
 
-def _min_dists_cuda(Z: torch.Tensor, bank: torch.Tensor, precision: str,
-                    symmetric: bool) -> torch.Tensor:
-    global LAUNCHES
+# the C interface's modes (csrc/min_dists.cu)
+_RECT, _SYM, _WIN = 0, 1, 2
+
+
+def _launch(Z: torch.Tensor, bank: torch.Tensor, precision: str, mode: int,
+            pairs: torch.Tensor, out: torch.Tensor,
+            col: torch.Tensor | None) -> None:
+    """Prepare the bf16 operands and norms and launch the kernel over
+    ``pairs`` [n_pairs, 2] int32 on Z's device, into ``out`` (and ``col``
+    in window mode); raises if the launch fails."""
+    if pairs.dtype != torch.int32 or not pairs.is_contiguous() or \
+            pairs.ndim != 2 or pairs.shape[1] != 2:
+        raise ValueError("the pair list must be a contiguous [n, 2] int32")
     n_i, p, d = Z.shape
     n_j, q, _ = bank.shape
-    dev = Z.device
     z_parts, a2 = _prep(Z, precision)
-    if symmetric:
+    if mode == _SYM:
         b_parts, b2 = z_parts, a2
     else:
         b_parts, b2 = _prep(bank, precision)
@@ -129,6 +196,31 @@ def _min_dists_cuda(Z: torch.Tensor, bank: torch.Tensor, precision: str,
     z_parts = tuple(t.contiguous() for t in z_parts)
     b_parts = tuple(t.contiguous() for t in b_parts)
     a2, b2 = a2.contiguous(), b2.contiguous()
+    comp = precision != "bf16"
+    fn = _kernel_fn()
+    dev = Z.device
+    with torch.cuda.device(dev):
+        rc = fn(z_parts[0].data_ptr(),
+                z_parts[1].data_ptr() if comp else None,
+                b_parts[0].data_ptr(),
+                b_parts[1].data_ptr() if comp else None,
+                a2.data_ptr(), b2.data_ptr(), pairs.data_ptr(),
+                pairs.shape[0], out.data_ptr(),
+                col.data_ptr() if col is not None else None,
+                n_i, n_j, p, q, d + pad, int(comp), mode,
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"min_dists kernel launch failed: cudaError {rc}")
+    # inputs freed on return go back to PyTorch's stream-ordered caching
+    # allocator, which reuses them only after this stream's kernel
+
+
+def _min_dists_cuda(Z: torch.Tensor, bank: torch.Tensor, precision: str,
+                    symmetric: bool) -> torch.Tensor:
+    global LAUNCHES
+    n_i, p, _ = Z.shape
+    n_j = bank.shape[0]
+    dev = Z.device
     if symmetric:
         pairs = torch.triu_indices(n_i, n_i, device=dev).t()
         out = torch.full((n_i, n_j, p), float("inf"), dtype=torch.float32,
@@ -137,23 +229,9 @@ def _min_dists_cuda(Z: torch.Tensor, bank: torch.Tensor, precision: str,
         pairs = torch.cartesian_prod(torch.arange(n_i, device=dev),
                                      torch.arange(n_j, device=dev))
         out = torch.empty((n_i, n_j, p), dtype=torch.float32, device=dev)
-    pairs = pairs.to(torch.int32).contiguous()
-    comp = precision != "bf16"
-    fn = _kernel_fn()
-    with torch.cuda.device(dev):
-        rc = fn(z_parts[0].data_ptr(),
-                z_parts[1].data_ptr() if comp else None,
-                b_parts[0].data_ptr(),
-                b_parts[1].data_ptr() if comp else None,
-                a2.data_ptr(), b2.data_ptr(), pairs.data_ptr(),
-                pairs.shape[0], out.data_ptr(), n_i, n_j, p, q, d + pad,
-                int(comp), int(symmetric),
-                torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"min_dists kernel launch failed: cudaError {rc}")
+    _launch(Z, bank, precision, _SYM if symmetric else _RECT,
+            pairs.to(torch.int32).contiguous(), out, None)
     LAUNCHES += 1
-    # inputs freed on return go back to PyTorch's stream-ordered caching
-    # allocator, which reuses them only after this stream's kernel
     return out
 
 
@@ -173,3 +251,55 @@ def min_dists_all_pairs(Z: torch.Tensor, bank: torch.Tensor, *,
         return min_dists_all_pairs_plain(Z, bank, precision=precision,
                                          symmetric=symmetric)
     raise ValueError(f"unsupported device {Z.device}")
+
+
+def _min_dists_window_cuda(Z: torch.Tensor, bank_window: torch.Tensor,
+                           window: int, precision: str
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    global WINDOW_LAUNCHES
+    n_i, p, _ = Z.shape
+    n_w, q, _ = bank_window.shape
+    dev = Z.device
+    # the pair list comes from the host through pinned memory: no sync
+    pairs = torch.from_numpy(window_pairs(n_i, n_w, window)).pin_memory()
+    pairs = pairs.to(dev, non_blocking=True)
+    row = torch.full((n_i, n_w, p), float("inf"), dtype=torch.float32,
+                     device=dev)
+    col = torch.full((n_w, n_i, q), float("inf"), dtype=torch.float32,
+                     device=dev)
+    _launch(Z, bank_window, precision, _WIN, pairs, row, col)
+    WINDOW_LAUNCHES += 1
+    return row, col
+
+
+def min_dists_window(Z: torch.Tensor, bank_window: torch.Tensor, *,
+                     window: int, precision: str = "f32"
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Circulant-window sweep of the triangle-sharded unsupervised alpha
+    (port of ``tpu_ac.kernels.distances.min_dists_window``).
+
+    The caller owns globally contiguous query rows a = offset + r and a
+    window of the (symmetric) bank whose column w holds global image
+    b = (offset + 1 + w) mod N.  Tile (r, w) is active iff
+    ``r <= w < r + window`` (pair distance w - r + 1 in [1, window]) and
+    gives both mins[a, b] (its row-min) and mins[b, a] (its col-min).
+
+    Returns ``(row [I, W, P], col [W, I, Q])`` f32.  Entries of inactive
+    tiles are undefined (+inf here): the caller masks by the pair
+    predicate.  On CUDA this launches the kernel (or raises); on the CPU
+    it runs the plain version.
+    """
+    _check_window(Z, bank_window, window, precision)
+    if Z.device.type == "cuda":
+        return _min_dists_window_cuda(Z, bank_window, window, precision)
+    if Z.device.type == "cpu":
+        return min_dists_window_plain(Z, bank_window, window=window,
+                                      precision=precision)
+    raise ValueError(f"unsupported device {Z.device}")
+
+
+def min_dists_to_sets(zi: torch.Tensor, bank: torch.Tensor, *,
+                      precision: str = "f32") -> torch.Tensor:
+    """mins[j, p] = min_q ||zi[p] - bank[j, q]|| for one query set zi
+    [P, D] -> [J, P] f32 (the rectangular kernel on one query image)."""
+    return min_dists_all_pairs(zi[None], bank, precision=precision)[0]

@@ -5,14 +5,18 @@ them; stage 2 (``cli/evaluate.py``) clusters and scores.  The artifact is
 the ``tpu_ac`` one: a pickled (alpha [N, 1, P] f32, X [N, D] f32) numpy
 tuple, so either package reads the other's files.
 
-Not carried from ``tpu_ac``: the dp-mesh branches of ``CategoryEmbedder``
-and ``compute_alpha_X`` (multi-device, ROADMAP Queue 1 item 14) and the
+The dp-mesh branches of ``CategoryEmbedder`` and ``compute_alpha_X`` take a
+``tpu_ac_torch.distributed.Mesh``: one process drives every device of it,
+and a mesh that repeats one device (a virtual mesh) runs the same
+multi-device path on one card or on the CPU.  ``"auto"`` engages a mesh
+only with more than one card.  Not carried from ``tpu_ac``: the
 ``_Uploader`` thread, whose job (keeping a slow host link off the dispatch
 path) is done here by pinned host buffers and ``non_blocking`` copies.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 import pickle
@@ -39,6 +43,13 @@ from tpu_ac_torch.data.mvtec import (
     normalize_on_device,
 )
 from tpu_ac_torch.device import embed_dtype, precision_scope, resolve_device
+from tpu_ac_torch.distributed import (
+    Mesh,
+    get_mesh,
+    shard_batch,
+    sharded_weight_distance_supervised,
+    sharded_weight_distance_unsupervised,
+)
 from tpu_ac_torch.features.embedding import EmbedConfig, embed_vit_features
 from tpu_ac_torch.models.registry import load_backbone
 
@@ -94,58 +105,90 @@ class _StagedUpload:
 
 
 class CategoryEmbedder:
-    """Batched embedding of an image set on one device.
+    """Batched embedding of an image set on one device or over a dp mesh.
 
     ``model`` is a ``ViT`` (f32, any device); it is moved to ``device`` and,
     for ``precision="bfloat16"``, cast to bf16.  ``attention_impl``: "auto"
     is the dense attention, as in ``tpu_ac``; "flash" runs every block's
     attention through the flash kernel (``kernels/attention.py``), on the
     true token count (no ``seq_pad``).
+
+    ``mesh``: a ``Mesh`` shards each batch over its positions (one model
+    replica per distinct device; ``batch_size`` must divide evenly; then
+    ``device`` is not used), and the result is the [N, P, D] one device
+    gives, on the mesh's first device; "auto" picks ``get_mesh()`` when
+    more than one card is visible, ``device`` is CUDA and ``batch_size``
+    divides over the cards; None (or "auto" otherwise) embeds on
+    ``device``.
     """
 
     def __init__(self, model, cfg: PipelineConfig,
-                 device="cuda", attention_impl: str = "auto"):
+                 device="cuda", attention_impl: str = "auto", mesh=None):
         if attention_impl not in ("auto", "flash"):
             raise ValueError(f"attention_impl {attention_impl!r}")
-        self.device = resolve_device(device)
+        if mesh == "auto":
+            count = torch.cuda.device_count()
+            mesh = get_mesh() if (resolve_device(device).type == "cuda" and
+                                  count > 1 and
+                                  cfg.batch_size % count == 0) else None
+        if mesh is not None and cfg.batch_size % mesh.size:
+            raise ValueError(f"batch size {cfg.batch_size} not divisible "
+                             f"over a mesh of {mesh.size}")
+        self.mesh = mesh
         self._dtype = embed_dtype(cfg.precision)
-        self._model = model.to(device=self.device, dtype=self._dtype)
+        # the device of each shard of a batch: one, or the mesh's positions
+        self._positions = (resolve_device(device),) if mesh is None \
+            else mesh.devices
+        self.device = self._positions[0]
+        self._models = {}
+        for d in dict.fromkeys(self._positions):
+            # .to() moves a module in place: the other devices get copies
+            m = model if not self._models else copy.deepcopy(model)
+            self._models[d] = m.to(device=d, dtype=self._dtype)
+        self._model = self._models[self.device]
         self._cfg = cfg
         self._attention = "flash" if attention_impl == "flash" else None
 
     def stage(self, images: np.ndarray) -> _StagedUpload:
         """Start uploading uint8 [N, 3, H, W] images, padded to a multiple of
-        batch_size.  On CUDA the host array is copied once into pinned
-        memory and each batch is copied with ``non_blocking=True``, so the
-        call returns before the transfer ends."""
+        batch_size; over a mesh each batch is split into one shard per
+        position, uploaded to its device.  On CUDA the host array is copied
+        once into pinned memory and each batch is copied with
+        ``non_blocking=True``, so the call returns before the transfer
+        ends."""
         n = images.shape[0]
         bs = self._cfg.batch_size
         pad = (-n) % bs
         host = torch.from_numpy(np.ascontiguousarray(images))
         if pad:
             host = torch.cat([host, host.new_zeros(pad, *host.shape[1:])])
-        if self.device.type == "cuda":
+        pos = self._positions
+        if any(d.type == "cuda" for d in pos):
             host = host.pin_memory()
-        batches = [host[s:s + bs].to(self.device, non_blocking=True)
+        batches = [[x.to(d, non_blocking=True)
+                    for x, d in zip(host[s:s + bs].chunk(len(pos)), pos)]
                    for s in range(0, host.shape[0], bs)]
         return _StagedUpload(batches, host, n)
 
-    def _embed(self, batch: torch.Tensor) -> torch.Tensor:
+    def _embed(self, batch: torch.Tensor, model) -> torch.Tensor:
         images = batch
         if images.dtype == torch.uint8:
             images = normalize_on_device(images)
         images = images.to(self._dtype)
         with precision_scope(self._cfg.precision), torch.inference_mode():
-            z = embed_vit_features(self._model, images, self._cfg.embed_config,
+            z = embed_vit_features(model, images, self._cfg.embed_config,
                                    attention_impl=self._attention)
         return z.to(torch.float32)
 
     def __call__(self, images) -> torch.Tensor:
         """[N, 3, H, W] host images (or a ``stage()`` token) -> [N, P, D] f32
-        embeddings on the device; nothing here waits for the device."""
+        embeddings on ``self.device``; nothing here waits for the
+        device."""
         staged = images if isinstance(images, _StagedUpload) \
             else self.stage(images)
-        chunks = [self._embed(b) for b in staged.batches]
+        chunks = [self._embed(x, self._models[d]).to(self.device)
+                  for shards in staged.batches
+                  for x, d in zip(shards, self._positions)]
         return torch.cat(chunks)[:staged.n]
 
 
@@ -156,37 +199,72 @@ def _pad_bucket(Z: torch.Tensor, bucket: int) -> torch.Tensor:
     return torch.cat([Z, Z.new_zeros(pad, *Z.shape[1:])])
 
 
+def _alpha_x_mesh(Z: torch.Tensor, supervised: str, tau: float,
+                  Z_train: torch.Tensor | None, precision: str,
+                  mesh: Mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dp branch: W over the mesh, then alpha and X on Z's device."""
+    n = Z.shape[0]
+    z_sh, _ = shard_batch(mesh, Z)  # on the device, no host round trip
+    if supervised == "supervised":
+        if Z_train is None:
+            raise ValueError("supervised mode requires Z_train")
+        w_sh = sharded_weight_distance_supervised(mesh, z_sh, Z_train,
+                                                  precision=precision)
+    else:
+        w_sh = sharded_weight_distance_unsupervised(mesh, z_sh, n_valid=n,
+                                                    precision=precision)
+    w = torch.cat([x.to(Z.device) for x in w_sh])[:n]
+    alpha = alpha_from_weights(w, tau)
+    return alpha, weighted_embedding(alpha, Z)
+
+
 def compute_alpha_X(Z: torch.Tensor, supervised: str, tau: float,
                     Z_train: torch.Tensor | None = None, n_bucket: int = 32,
-                    precision: str = "f32", packed: bool = False):
+                    use_mesh: bool | None = None, precision: str = "f32",
+                    mesh: Mesh | None = None, packed: bool = False):
     """(alpha [N, P], X [N, D]), or one [N, P+D] tensor when ``packed``.
 
-    N pads to a multiple of ``n_bucket`` as in ``tpu_ac``; the padded rows
-    are left out of the distance sweep and sliced off here.
+    Single device: N pads to a multiple of ``n_bucket`` as in ``tpu_ac``;
+    the padded rows are left out of the distance sweep and sliced off here.
+
+    ``use_mesh`` (default: Z on CUDA, more than one card, and a mode other
+    than "average") shards the weight computation over ``mesh`` (default
+    ``get_mesh()``): unsupervised takes the triangle scheme of
+    ``tpu_ac_torch.distributed``, whose window kernel never computes an
+    image against itself, so its W leaves out the self-term floor that the
+    single-device sweep sums; supervised sweeps each rank's rows against
+    the replicated train bank.
     """
     n = Z.shape[0]
     if n < 2 and supervised == "unsupervised":
         # the weight is a mean over the OTHER images (divides by n-1)
         raise ValueError(
             f"unsupervised alpha needs >= 2 images per category, got {n}")
-    if supervised == "supervised":
+    if use_mesh is None:
+        use_mesh = (Z.device.type == "cuda" and torch.cuda.device_count() > 1
+                    and supervised != "average")
+    if use_mesh and supervised in ("supervised", "unsupervised"):
+        alpha, x = _alpha_x_mesh(Z, supervised, tau, Z_train, precision,
+                                 get_mesh() if mesh is None else mesh)
+    elif supervised == "supervised":
         if Z_train is None:
             raise ValueError("supervised mode requires Z_train")
         zp = _pad_bucket(Z, n_bucket)
         w = weight_distance_supervised(
             zp, _pad_bucket(Z_train, n_bucket),
             n_train_valid=Z_train.shape[0], precision=precision)
+        alpha = alpha_from_weights(w, tau)
+        x = weighted_embedding(alpha, zp)
     elif supervised == "unsupervised":
         zp = _pad_bucket(Z, n_bucket)
         w = weight_distance_unsupervised(zp, n_valid=n, precision=precision)
+        alpha = alpha_from_weights(w, tau)
+        x = weighted_embedding(alpha, zp)
     elif supervised == "average":
-        zp = Z
-        w = None
+        alpha = matrix_alpha_average(Z)
+        x = weighted_embedding(alpha, Z)
     else:
         raise ValueError(f"supervised mode {supervised!r}")
-    alpha = matrix_alpha_average(zp) if w is None else alpha_from_weights(
-        w, tau)
-    x = weighted_embedding(alpha, zp)
     alpha, x = alpha[:n].to(torch.float32), x[:n].to(torch.float32)
     if packed:
         return torch.cat([alpha, x], dim=1)
@@ -255,9 +333,11 @@ def _dispatch_category(category: str, test_ds, images, cfg: PipelineConfig,
     Z = embedder(images)
     Z_train = embedder(train_images) if cfg.supervised == "supervised" \
         else None
+    mesh = embedder.mesh
     packed = compute_alpha_X(Z, cfg.supervised, cfg.tau, Z_train,
                              precision=cfg.resolved_alpha_precision,
-                             packed=True)
+                             use_mesh=True if mesh is not None else None,
+                             mesh=mesh, packed=True)
     done = None
     if packed.device.type == "cuda":
         host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
@@ -345,12 +425,13 @@ def category_metrics(X: np.ndarray, anomaly_labels: list[str]
 
 def build_embedder_for_config(cfg: PipelineConfig, *, device="cuda",
                               checkpoint_dir=None, attention_impl="auto",
-                              seed: int = 0) -> CategoryEmbedder:
+                              seed: int = 0, mesh="auto") -> CategoryEmbedder:
     """The registry's backbone for ``cfg`` (a checkpoint from
     ``checkpoint_dir`` or the default cache dirs, else the seeded init) in
     a ``CategoryEmbedder``; ``attention_impl="flash"`` takes the flash
-    kernel path."""
+    kernel path; ``mesh`` as in ``CategoryEmbedder`` ("auto": every card,
+    when there is more than one)."""
     model, _backbone_cfg, _family = load_backbone(
         cfg.backbone_name, checkpoint_dir=checkpoint_dir, seed=seed)
     return CategoryEmbedder(model, cfg, device=device,
-                            attention_impl=attention_impl)
+                            attention_impl=attention_impl, mesh=mesh)
