@@ -175,7 +175,12 @@ def test_cpu_call_launches_nothing():
 @pytest.mark.parametrize("dtype,s,n_valid", [
     (torch.bfloat16, 785, None), (torch.float32, 785, None),
     (torch.bfloat16, 130, None), (torch.bfloat16, 256, 200),
-    (torch.float32, 256, 200)])
+    (torch.float32, 256, 200),
+    # the 128-row Q tiles' and 64-key cp.async tiles' edges
+    (torch.bfloat16, 1, None), (torch.bfloat16, 17, None),
+    (torch.bfloat16, 127, None), (torch.bfloat16, 128, None),
+    (torch.bfloat16, 129, None), (torch.float32, 1, None),
+    (torch.float32, 129, None)])
 def test_kernel_matches_plain_on_card(dtype, s, n_valid):
     """The CUDA kernel vs the plain version on the card, on the strided
     views of a packed qkv, element by element within flash_tolerance (bf16:

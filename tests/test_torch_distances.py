@@ -122,17 +122,28 @@ def test_cpu_call_launches_nothing():
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["f32", "bf16c", "bf16"])
 @pytest.mark.parametrize("symmetric", [True, False])
-def test_kernel_matches_plain_on_card(precision, symmetric):
+@pytest.mark.parametrize("n,p,q,d", [
+    (5, 20, 20, 96),
+    # the wgmma/TMA tile edges: a warpgroup with no rows, a 112-column half
+    # with no columns, one and 64 chunks of 64 deep
+    (1, 112, 130, 96),
+    (1, 130, 784, 4096),
+    (1, 784, 112, 4096),
+    (2, 784, 784, 4096),
+])
+def test_kernel_matches_plain_on_card(precision, symmetric, n, p, q, d):
     """The CUDA kernel vs the plain version on the card, held on squared
     distances to 1e-4 of |a|^2 + max|b|^2: both form the same bf16 products
     exactly and differ only in f32 summation order (chip_smoke.py
-    _check_agree gives the bound); a CUDA call counts one launch."""
+    _check_agree gives the bound); a CUDA call counts one launch.  In
+    symmetric mode the bank is Z (Q = P)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (a CUDA kernel has no CPU mode)")
     rng = np.random.default_rng(3)
-    Z = torch.from_numpy(rng.standard_normal((5, 20, 96)).astype(
+    Z = torch.from_numpy(rng.standard_normal((n, p, d)).astype(
         np.float32)).cuda()
-    bank = Z if symmetric else Z[:3].contiguous()
+    bank = Z if symmetric else torch.from_numpy(rng.standard_normal(
+        (3, q, d)).astype(np.float32)).cuda()
     before = tdist.LAUNCHES
     got = tdist.min_dists_all_pairs(Z, bank, precision=precision,
                                     symmetric=symmetric)

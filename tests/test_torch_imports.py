@@ -1,5 +1,6 @@
-"""The port stands alone: no file of tpu_ac_torch/ and not chip_smoke.py
-imports jax, jaxlib or tpu_ac (as distinct from tpu_ac_torch)."""
+"""The port stands alone: no file of tpu_ac_torch/, not chip_smoke.py and
+not scripts/kernel_ab.py imports jax, jaxlib or tpu_ac (as distinct from
+tpu_ac_torch)."""
 
 import ast
 import os
@@ -11,7 +12,8 @@ BANNED = ("jax", "jaxlib", "tpu_ac")
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "scripts", "kernel_ab.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "tpu_ac_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -38,6 +40,7 @@ def test_no_jax_or_tpu_ac_import(path):
 def test_scan_sees_the_package():
     names = {os.path.relpath(p, ROOT) for p in _port_files()}
     assert "chip_smoke.py" in names
+    assert os.path.join("scripts", "kernel_ab.py") in names
     for mod in ("kernels/distances.py", "kernels/attention.py",
                 "models/convert.py", "models/manifest.py", "cli/convert.py",
                 "hub.py", "distributed/__init__.py", "distributed/mesh.py"):

@@ -141,15 +141,18 @@ def test_min_dists_to_sets_matches(precision):
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
 @pytest.mark.parametrize("n,off,n_local,ti", PLACEMENTS)
-def test_kernel_matches_plain_on_card(precision, n, off, n_local, ti):
+@pytest.mark.parametrize("p,d", [(20, 96), (130, 4096)])
+def test_kernel_matches_plain_on_card(precision, n, off, n_local, ti, p, d):
     """The window kernel vs its plain version on the card, on the active
     tiles, held on squared distances to 1e-4 of the norms (chip_smoke.py
-    _check_agree gives the bound); inactive tiles +inf on both; a CUDA call
-    counts one window launch and no other."""
+    _check_agree gives the bound), at P = 20 (one warpgroup, one Q half)
+    and at P = 130, D = 4096 (a second slab, 64 chunks); inactive tiles
+    +inf on both; a CUDA call counts one window launch and no other."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (a CUDA kernel has no CPU mode)")
     z_loc, bank_w, h = (torch.from_numpy(x).cuda() if isinstance(
-        x, np.ndarray) else x for x in _window_inputs(n, off, n_local))
+        x, np.ndarray) else x for x in _window_inputs(n, off, n_local, p,
+                                                       d))
     before = (tdist.LAUNCHES, tdist.WINDOW_LAUNCHES)
     row, col = tdist.min_dists_window(z_loc, bank_w, window=h,
                                       precision=precision)

@@ -11,36 +11,52 @@
 // over the keys j < S with ids[j] == ids[i] (every key without ids).  These
 // are the stock kernel's segment semantics: a padded query row sees only the
 // padded keys, and no row is ever fully masked, since it sees itself.  Any S
-// is taken: the ragged last tile (S=785 = 6*128 + 17) is masked here, on the
-// loads, the scores and the stores; the TPU's 128-multiple was a tiling rule
-// of the Pallas kernel.  Rows are addressed by (batch, head, sequence)
-// strides, so q, k, v may be the strided views of a packed qkv projection
-// and out may be the [B, S, H, 64] layout the output projection reads.
+// is taken: the ragged last key tile (S = 785 = 12 * 64 + 17) is masked here;
+// the TPU's 128-multiple was a tiling rule of the Pallas kernel.  Rows are
+// addressed by (batch, head, sequence) strides, so q, k, v may be the strided
+// views of a packed qkv projection and out may be the [B, S, H, 64] layout
+// the output projection reads.
 //
-// Design, simple and right first.  A block owns a 64-row Q tile of one
-// (b, h) and walks the K/V tiles of 64 keys through shared memory.  Each row
-// keeps its running max m and sum l in f32 registers, in the log2 domain
-// (scale * log2(e) folded into one multiply before exp2f), and rescales its
-// output accumulator by exp2(m_old - m_new) when m grows; out = O / l is
-// written once, in the input type.
-//   - bf16: 4 warps, 16 rows each; QK^T and P.V on the tensor cores with
-//     mma.sync m16n8k16 and f32 accumulation.  The score fragments stay in
-//     registers and become the A operand of P.V directly, so P is rounded to
-//     bf16 before P.V (l sums the unrounded f32 P).  V is stored transposed
-//     in shared memory so that both B operands are 32-bit loads.
-//   - f32: one thread per query row, f32 FMAs over the same tiles, the
-//     online-softmax rescale once per 16 keys.  Right and slow: it exists
-//     for precision="default"/"highest", not for the bf16 main path.
+// Design of the bf16 variant (FlashAttention-2 style, mma.sync):
+//   - A block owns a 128-row Q tile of one (b, h): 4 warps of 32 rows (128
+//     threads); 8 warps of 16 rows ran as fast on the card
+//     (scripts/kernel_ab.py variant fa_rows16; PERF.md).  At [8, 12, 785,
+//     64] that is 7 x 96 = 672 blocks; at 3 blocks an SM (168 registers a
+//     thread, 64 KB of shared memory a block) the 132 SMs take them in 1.70
+//     waves, against 2.36 waves of 1,248 64-row blocks before.  In the last
+//     Q tile (S = 785 leaves 17 of 128 rows) the warps without a valid row
+//     only help with the copies.
+//   - Q and the K/V tiles of 64 keys arrive by cp.async.cg 16-byte copies
+//     (rows >= S zero-filled by the copy's source size) into a ring of 3 K/V
+//     stages: tiles t+1 and t+2 load while tile t computes; one barrier a
+//     tile.
+//   - Shared memory rows are 128 B, their eight 16-byte chunks XOR-swizzled by
+//     row & 7, so the cp.async stores and every ldmatrix (8 rows of one
+//     logical chunk) touch 32 distinct banks.  Q's A fragments (read again at
+//     every tile, which keeps a thread within 168 registers), K's B
+//     fragments (ldmatrix.x4) and V's B fragments (ldmatrix.x4.trans on V as
+//     it is stored) come from there; no transposing stores.
+//   - QK^T and P.V run as mma.sync m16n8k16 bf16 with f32 accumulation.  The
+//     score fragments stay in registers and become P.V's A operand, so P is
+//     rounded to bf16 before P.V while l sums the unrounded f32 P.  Each row
+//     keeps its max m and sum l in the log2 domain (scale * log2(e) folded
+//     into the FFMA before a one-instruction ex2) and rescales its
+//     accumulator by exp2(m_old - m_new); out = O / l is written once, in
+//     bf16.
+//   - Only the ragged last tile, and every tile of a call with segment ids
+//     (template SEG), test keys one by one; full tiles take no predicate.
 //   - A row that has seen no visible key yet has m = -inf; the exponentials
 //     then subtract 0 instead of m, so exp2(-inf - -inf) never makes a NaN.
-// wgmma, TMA, cp.async double buffering and warp specialisation are later
-// work.
+// The f32 variant (precision="default"/"highest") is the first design: one
+// thread per query row, f32 FMAs over 64-key tiles, the rescale once per 16
+// keys.
 //
 // Bound at the main path's shape (B=8, H=12, S=785, Dh=64, bf16; H100 SXM at
 // 700 W): operations 4*B*H*S^2*Dh = 15.14 GFLOP, 15.3 us at 989 TFLOP/s;
 // bytes q, k, v read and out written once, 38.6 MB, 11.5 us at 3.35 TB/s;
 // exponentials B*H*S^2 = 59.2 M, about 14 us at the SFU's 16 per clock per
-// SM.  So it is bounded by operations, with the exponentials close behind.
+// SM.  So it is bounded by operations, with the exponentials close behind;
+// mma.sync (not wgmma) caps the tensor cores near two thirds of that peak.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,13 +65,16 @@
 namespace {
 
 constexpr int DH = 64;        // head dim (every dino_vit* name)
-constexpr int BM = 64;        // query rows per block
+constexpr int BQ = 128;       // bf16: query rows per block
+constexpr int WARP_ROWS = 32;  // bf16: query rows a warp (4 warps)
+constexpr int BF16_THREADS = BQ / WARP_ROWS * 32;
+constexpr int BM = 64;        // f32: query rows (threads) per block
 constexpr int BN = 64;        // keys per K/V tile
-constexpr int THREADS = 128;  // bf16: 4 warps x 16 rows
-constexpr int LD = DH + 8;    // bf16 row stride of the Q and K tiles (144 B)
-constexpr int LDV = BN + 8;   // bf16 row stride of the transposed V tile
+constexpr int KV_STAGES = 3;  // bf16: K/V ring depth
 constexpr int CHUNK = 16;     // f32: keys per online-softmax rescale
 constexpr float LOG2E = 1.4426950408889634f;
+// bf16 shared memory: the Q tile and KV_STAGES K and V tiles, 128-B rows
+constexpr int BF16_SMEM = (BQ + 2 * KV_STAGES * BN) * DH * 2;
 
 struct Strides {
   long long b, h, s;  // elements
@@ -72,10 +91,6 @@ struct Args {
   float c;  // scale * log2(e)
 };
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -91,46 +106,83 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Rows [r0, r0 + 64) of one (b, h) slice into shared memory, row stride LD;
-// rows >= S load as zeros.  A warp reads 4 rows of 128 contiguous bytes.
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long ss, int r0, int S) {
-  for (int c = threadIdx.x; c < 64 * (DH / 8); c += THREADS) {
-    const int row = c >> 3;
-    const int col = (c & 7) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + row < S)
-      val = *reinterpret_cast<const uint4*>(src + (r0 + row) * ss + col);
-    *reinterpret_cast<uint4*>(dst + row * LD + col) = val;
-  }
+// Element offset of 16-byte chunk `ch` (0..7) of row `r` in a tile of
+// 128-byte rows, the chunks XOR-swizzled by r & 7.
+__device__ __forceinline__ int swz(int r, int ch) {
+  return r * DH + ((ch ^ (r & 7)) << 3);
 }
 
-// The same rows stored transposed: dst[col * LDV + row].  A warp reads 16
-// rows of 32 contiguous bytes, so its 2-byte stores meet at most 2 to a bank.
-__device__ __forceinline__ void load_rows_t(__nv_bfloat16* dst,
-                                            const __nv_bfloat16* src,
-                                            long long ss, int r0, int S) {
-  for (int c = threadIdx.x; c < 64 * (DH / 8); c += THREADS) {
-    const int row = (c & 15) | ((c >> 7) << 4);
-    const int col = ((c >> 4) & 7) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + row < S)
-      val = *reinterpret_cast<const uint4*>(src + (r0 + row) * ss + col);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 b16 matrices from shared memory; lane l gives the address of row
+// l & 7 of matrix l >> 3.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// The same, each matrix transposed.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// Rows [r0, r0 + ROWS) of one (b, h) slice into a swizzled shared tile by
+// cp.async; rows >= S are zero-filled (source size 0, address clamped).
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* src,
+                                                long long ss, int r0, int S) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(col + i) * LDV + row] = e[i];
+  for (int c = threadIdx.x; c < ROWS * (DH / 8); c += THREADS) {
+    const int row = c >> 3;
+    const int ch = c & 7;
+    const int n = r0 + row < S ? 16 : 0;
+    const __nv_bfloat16* g = src + min(r0 + row, S - 1) * ss + ch * 8;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(dst + swz(row, ch))), "l"(g), "r"(n)
+                 : "memory");
   }
 }
 
-__global__ void __launch_bounds__(THREADS) flash_fwd_bf16(Args a) {
-  __shared__ __align__(16) __nv_bfloat16 qs[BM * LD];
-  __shared__ __align__(16) __nv_bfloat16 ks[BN * LD];
-  __shared__ __align__(16) __nv_bfloat16 vt[DH * LDV];
-  __shared__ int kid[BN];
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// 2^x in one MUFU instruction (exp2f adds denormal handling around it); a
+// result below 2^-126 flushes to 0, far under the bf16 rounding of P.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 3 blocks an SM without segment ids (168 registers a thread); the
+// segment-id instance takes 2, which it fills without spilling.
+template <bool SEG>
+__global__ void __launch_bounds__(BF16_THREADS, SEG ? 2 : 3)
+    flash_fwd_bf16(Args a) {
+  constexpr int THREADS = BF16_THREADS;
+  constexpr int MT = WARP_ROWS / 16;  // m16 tiles a warp
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* ks = qs + BQ * DH;              // [KV_STAGES][BN * DH]
+  __nv_bfloat16* vs = ks + KV_STAGES * BN * DH;  // [KV_STAGES][BN * DH]
 
   const int S = a.S;
-  const int q0 = blockIdx.x * BM;
+  const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q) +
@@ -142,131 +194,196 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_bf16(Args a) {
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a.o) + b * a.so.b +
                      h * a.so.h;
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int g = lane >> 2;         // fragment row (and row + 8)
-  const int t = lane & 3;          // fragment column pair
-  const int r0 = (tid >> 5) * 16;  // the warp's rows in the tile
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // fragment row (and row + 8)
+  const int t = lane & 3;   // fragment column pair
+  const int wr = (threadIdx.x >> 5) * WARP_ROWS;  // the warp's first row
+  const int n_kt = (S + BN - 1) / BN;
 
-  load_rows(qs, q, a.sq.s, q0, S);
-  __syncthreads();
-  // the warp's Q rows as A fragments, kept in registers for every K tile
-  uint32_t qa[DH / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    const __nv_bfloat16* p = qs + (r0 + g) * LD + kk * 16 + 2 * t;
-    qa[kk][0] = ld32(p);
-    qa[kk][1] = ld32(p + 8 * LD);
-    qa[kk][2] = ld32(p + 8);
-    qa[kk][3] = ld32(p + 8 * LD + 8);
+  // cp.async groups: Q with K/V tile 0, then one group a tile (empty past
+  // the last), so "tile kt has landed" is always wait_group 1 at kt
+  load_rows_async<BQ, THREADS>(qs, q, a.sq.s, q0, S);
+  load_rows_async<BN, THREADS>(ks, k, a.sk.s, 0, S);
+  load_rows_async<BN, THREADS>(vs, v, a.sv.s, 0, S);
+  cp_async_commit();
+  if (n_kt > 1) {
+    load_rows_async<BN, THREADS>(ks + BN * DH, k, a.sk.s, BN, S);
+    load_rows_async<BN, THREADS>(vs + BN * DH, v, a.sv.s, BN, S);
   }
-  // rows i0 and i1 = i0 + 8 of this thread; rows >= S are never stored
-  const int i0 = q0 + r0 + g;
-  const int i1 = i0 + 8;
-  const int qid0 = a.seg ? a.seg[min(i0, S - 1)] : 0;
-  const int qid1 = a.seg ? a.seg[min(i1, S - 1)] : 0;
+  cp_async_commit();
 
-  float acc[DH / 8][4];
+  // rows of this thread: wr + 16 mt + g (+ 8); rows >= S are never stored
+  int qid[MT][2];
 #pragma unroll
-  for (int d = 0; d < DH / 8; ++d)
-    acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      qid[mt][e] = SEG ? a.seg[min(q0 + wr + 16 * mt + g + 8 * e, S - 1)]
+                       : 0;
 
-  for (int k0 = 0; k0 < S; k0 += BN) {
-    __syncthreads();  // every warp is done with the previous tile
-    load_rows(ks, k, a.sk.s, k0, S);
-    load_rows_t(vt, v, a.sv.s, k0, S);
-    if (tid < BN) kid[tid] = (a.seg && k0 + tid < S) ? a.seg[k0 + tid] : 0;
+  float acc[MT][DH / 8][4];
+  float m[MT][2], l[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int d = 0; d < DH / 8; ++d)
+      acc[mt][d][0] = acc[mt][d][1] = acc[mt][d][2] = acc[mt][d][3] = 0.f;
+    m[mt][0] = m[mt][1] = -INFINITY;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BN;
+    cp_async_wait<1>();  // tile kt has landed; kt + 1 may still fly
     __syncthreads();
+    // tile kt + 2 goes to the stage of kt - 1, which every warp finished
+    // before the barrier above; it flies while kt and kt + 1 compute
+    if (kt + 2 < n_kt) {
+      const int st = (kt + 2) % KV_STAGES;
+      load_rows_async<BN, THREADS>(ks + st * BN * DH, k, a.sk.s, k0 + 2 * BN,
+                                   S);
+      load_rows_async<BN, THREADS>(vs + st * BN * DH, v, a.sv.s, k0 + 2 * BN,
+                                   S);
+    }
+    cp_async_commit();
+    // a warp whose rows all lie past S (the last Q tile: S = 785 leaves 17
+    // rows of 128) only helps with the copies and the barriers
+    if (q0 + wr >= S) continue;
+    const __nv_bfloat16* kst = ks + (kt % KV_STAGES) * BN * DH;
+    const __nv_bfloat16* vst = vs + (kt % KV_STAGES) * BN * DH;
 
-    // scores of 16 rows x 64 keys: 8 n-tiles of 8 keys
-    float s[BN / 8][4];
+    // scores of the warp's rows x 64 keys: 8 n-tiles of 8 keys; one
+    // ldmatrix.x4 gives the B fragments of two n-tiles at one 16-deep step
+    float s[MT][BN / 8][4];
 #pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-        const __nv_bfloat16* p = ks + (n * 8 + g) * LD + kk * 16 + 2 * t;
-        mma_bf16(s[n], qa[kk], ld32(p), ld32(p + 8));
+      for (int n = 0; n < BN / 8; ++n)
+        s[mt][n][0] = s[mt][n][1] = s[mt][n][2] = s[mt][n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      uint32_t qf[MT][4];  // the warp's Q rows as A fragments
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldsm_x4(qf[mt],
+                qs + swz(wr + 16 * mt + (lane & 15), 2 * kk + (lane >> 4)));
+#pragma unroll
+      for (int np = 0; np < BN / 16; ++np) {
+        uint32_t kb[4];
+        ldsm_x4(kb, kst + swz(np * 16 + (lane & 7) + ((lane >> 4) << 3),
+                              2 * kk + ((lane >> 3) & 1)));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(s[mt][2 * np], qf[mt], kb[0], kb[1]);
+          mma_bf16(s[mt][2 * np + 1], qf[mt], kb[2], kb[3]);
+        }
       }
     }
-    // into the log2 domain; invisible keys (ragged tail, other segment)
-    // become -inf
-    float mx0 = -INFINITY, mx1 = -INFINITY;
+
 #pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
+    for (int mt = 0; mt < MT; ++mt) {
+      // invisible keys (ragged tail, other segment) become -inf, tested
+      // only where a key can be invisible; the scale into the log2 domain
+      // folds into the exponentials' FFMA below (c > 0 keeps the max)
+      if (SEG || k0 + BN > S) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + 2 * t + (e & 1);
-        const bool ok = k0 + col < S && kid[col] == (e < 2 ? qid0 : qid1);
-        s[n][e] = ok ? s[n][e] * a.c : -INFINITY;
+        for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + n * 8 + 2 * t + (e & 1);
+            bool ok = col < S;
+            if (SEG) ok = ok && a.seg[min(col, S - 1)] == qid[mt][e >> 1];
+            if (!ok) s[mt][n][e] = -INFINITY;
+          }
       }
-      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
-    }
-    // the 4 threads of a quad hold one row between them
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0);
-    const float mn1 = fmaxf(m1, mx1);
-    const float base0 = mn0 == -INFINITY ? 0.f : mn0;
-    const float base1 = mn1 == -INFINITY ? 0.f : mn1;
-    const float corr0 = exp2f(m0 - base0);
-    const float corr1 = exp2f(m1 - base1);
-    m0 = mn0;
-    m1 = mn1;
-    float rs0 = 0.f, rs1 = 0.f;
+      float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
-      s[n][0] = exp2f(s[n][0] - base0);
-      s[n][1] = exp2f(s[n][1] - base0);
-      s[n][2] = exp2f(s[n][2] - base1);
-      s[n][3] = exp2f(s[n][3] - base1);
-      rs0 += s[n][0] + s[n][1];
-      rs1 += s[n][2] + s[n][3];
-    }
-    l0 = l0 * corr0 + rs0;  // a per-thread partial sum; quads add at the end
-    l1 = l1 * corr1 + rs1;
+      for (int n = 0; n < BN / 8; ++n) {
+        mx0 = fmaxf(mx0, fmaxf(s[mt][n][0], s[mt][n][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[mt][n][2], s[mt][n][3]));
+      }
+      // the 4 threads of a quad hold one row between them
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m[mt][0], mx0 * a.c);
+      const float mn1 = fmaxf(m[mt][1], mx1 * a.c);
+      const float base0 = mn0 == -INFINITY ? 0.f : mn0;
+      const float base1 = mn1 == -INFINITY ? 0.f : mn1;
+      const float corr0 = ex2(m[mt][0] - base0);
+      const float corr1 = ex2(m[mt][1] - base1);
+      m[mt][0] = mn0;
+      m[mt][1] = mn1;
+      float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-    for (int d = 0; d < DH / 8; ++d) {
-      acc[d][0] *= corr0;
-      acc[d][1] *= corr0;
-      acc[d][2] *= corr1;
-      acc[d][3] *= corr1;
-    }
-    // acc += P V over 4 steps of 16 keys: the C fragments of n-tiles 2j and
-    // 2j+1 are the A fragment of key step j, rounded to bf16 here
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                              pack_bf16(s[2 * j][2], s[2 * j][3]),
-                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+      for (int n = 0; n < BN / 8; ++n) {
+        s[mt][n][0] = ex2(fmaf(s[mt][n][0], a.c, -base0));
+        s[mt][n][1] = ex2(fmaf(s[mt][n][1], a.c, -base0));
+        s[mt][n][2] = ex2(fmaf(s[mt][n][2], a.c, -base1));
+        s[mt][n][3] = ex2(fmaf(s[mt][n][3], a.c, -base1));
+        rs0 += s[mt][n][0] + s[mt][n][1];
+        rs1 += s[mt][n][2] + s[mt][n][3];
+      }
+      // a per-thread partial sum; quads add at the end
+      l[mt][0] = l[mt][0] * corr0 + rs0;
+      l[mt][1] = l[mt][1] * corr1 + rs1;
 #pragma unroll
       for (int d = 0; d < DH / 8; ++d) {
-        const __nv_bfloat16* p = vt + (d * 8 + g) * LDV + j * 16 + 2 * t;
-        mma_bf16(acc[d], pa, ld32(p), ld32(p + 8));
+        acc[mt][d][0] *= corr0;
+        acc[mt][d][1] *= corr0;
+        acc[mt][d][2] *= corr1;
+        acc[mt][d][3] *= corr1;
+      }
+    }
+
+    // acc += P V over 4 steps of 16 keys: the C fragments of n-tiles 2j and
+    // 2j+1 are the A fragment of key step j, rounded to bf16 here; one
+    // ldmatrix.x4.trans gives the B fragments of two 8-wide d-tiles
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) {
+      uint32_t pa[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        pa[mt][0] = pack_bf16(s[mt][2 * j][0], s[mt][2 * j][1]);
+        pa[mt][1] = pack_bf16(s[mt][2 * j][2], s[mt][2 * j][3]);
+        pa[mt][2] = pack_bf16(s[mt][2 * j + 1][0], s[mt][2 * j + 1][1]);
+        pa[mt][3] = pack_bf16(s[mt][2 * j + 1][2], s[mt][2 * j + 1][3]);
+      }
+#pragma unroll
+      for (int dp = 0; dp < DH / 16; ++dp) {
+        uint32_t vb[4];
+        ldsm_x4_t(vb, vst + swz(j * 16 + (lane & 15), 2 * dp + (lane >> 4)));
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(acc[mt][2 * dp], pa[mt], vb[0], vb[1]);
+          mma_bf16(acc[mt][2 * dp + 1], pa[mt], vb[2], vb[3]);
+        }
       }
     }
   }
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
-  const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
 #pragma unroll
-  for (int d = 0; d < DH / 8; ++d) {
-    const int col = d * 8 + 2 * t;
-    if (i0 < S)
-      *reinterpret_cast<uint32_t*>(o + i0 * a.so.s + col) =
-          pack_bf16(acc[d][0] * inv0, acc[d][1] * inv0);
-    if (i1 < S)
-      *reinterpret_cast<uint32_t*>(o + i1 * a.so.s + col) =
-          pack_bf16(acc[d][2] * inv1, acc[d][3] * inv1);
+  for (int mt = 0; mt < MT; ++mt) {
+    float l0 = l[mt][0], l1 = l[mt][1];
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
+    const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+    const int i0 = q0 + wr + 16 * mt + g;
+    const int i1 = i0 + 8;
+#pragma unroll
+    for (int d = 0; d < DH / 8; ++d) {
+      const int col = d * 8 + 2 * t;
+      if (i0 < S)
+        *reinterpret_cast<uint32_t*>(o + i0 * a.so.s + col) =
+            pack_bf16(acc[mt][d][0] * inv0, acc[mt][d][1] * inv0);
+      if (i1 < S)
+        *reinterpret_cast<uint32_t*>(o + i1 * a.so.s + col) =
+            pack_bf16(acc[mt][d][2] * inv1, acc[mt][d][3] * inv1);
+    }
   }
 }
 
@@ -360,6 +477,17 @@ __global__ void __launch_bounds__(BM) flash_fwd_f32(Args a) {
 
 }  // namespace
 
+template <bool SEG>
+static cudaError_t launch_bf16(const Args& a, dim3 grid, cudaStream_t s) {
+  auto kernel = &flash_fwd_bf16<SEG>;
+  cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(kernel),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, BF16_SMEM);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, BF16_THREADS, BF16_SMEM, s>>>(a);
+  return cudaGetLastError();
+}
+
 // C interface bound with ctypes by tpu_ac_torch/kernels/attention.py.
 // q, k, v, o: [B, H, S, 64] of bf16 (is_bf16 != 0) or f32, addressed by the
 // 12 element strides in `strides` (q, k, v, o, each as batch, head,
@@ -384,11 +512,12 @@ extern "C" int tpu_ac_flash_attention(const void* q, const void* k,
   a.so = Strides{strides[9], strides[10], strides[11]};
   a.S = S;
   a.c = scale * LOG2E;
-  const dim3 grid((S + BM - 1) / BM, H, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    flash_fwd_bf16<<<grid, THREADS, 0, s>>>(a);
-  else
-    flash_fwd_f32<<<grid, BM, 0, s>>>(a);
-  return (int)cudaGetLastError();
+  if (!is_bf16) {
+    flash_fwd_f32<<<dim3((S + BM - 1) / BM, H, B), BM, 0, s>>>(a);
+    return (int)cudaGetLastError();
+  }
+  const dim3 grid((S + BQ - 1) / BQ, H, B);
+  return (int)(seg ? launch_bf16<true>(a, grid, s)
+                   : launch_bf16<false>(a, grid, s));
 }

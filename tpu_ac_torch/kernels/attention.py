@@ -147,6 +147,9 @@ def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(
             f"the flash kernel takes head dim {HEAD_DIM} only, got {d}: "
             "other head dims are ROADMAP.md Queue 2 item 5")
+    if not scale > 0:
+        raise ValueError(
+            f"the flash kernel takes a positive scale, got {scale}")
     if b > 65535 or h > 65535:
         raise ValueError(f"B={b}, H={h}: each must be <= 65535 (grid)")
     for name, t in (("q", q), ("k", k), ("v", v)):

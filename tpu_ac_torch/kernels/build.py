@@ -6,6 +6,14 @@ At first use each ``csrc/<name>.cu`` is compiled by ``nvcc`` for
 keyed by a hash of the source and the flags; the libraries are loaded with
 ``ctypes``.  All sources compile at once, one ``nvcc`` each.  Nothing else
 is built and nothing is downloaded; a failed build raises.
+
+The flags need nothing beyond the CUDA toolkit: ``min_dists.cu`` builds its
+TMA tensor maps with the driver API's ``cuTensorMapEncodeTiled``, which it
+reaches at run time through the runtime's ``cudaGetDriverEntryPoint``
+(``...ByVersion`` from CUDA 12.5), so the libraries link no ``-lcuda``;
+no CUTLASS header is used.  ``-Xptxas -v`` keeps ptxas's report of each
+kernel instance (registers, shared memory, spills, wgmma warnings) in
+``BUILD_LOG``.
 """
 
 from __future__ import annotations

@@ -41,7 +41,9 @@ PRECISIONS = ("f32", "bf16c", "bf16")
 LAUNCHES = 0
 WINDOW_LAUNCHES = 0
 
-_BK = 32  # the kernel's D chunk: D is zero-padded to a multiple of it
+_BK = 64  # the kernel's D chunk: D is zero-padded to a multiple of it
+_BM = 128  # P rows of one work item (a slab)
+_GROUP = 2  # query images a band of the work order
 
 
 def _check(Z: torch.Tensor, bank: torch.Tensor, precision: str,
@@ -152,6 +154,65 @@ def min_dists_window_plain(Z: torch.Tensor, bank_window: torch.Tensor, *,
     return row, col
 
 
+def work_items(pairs: np.ndarray, p: int) -> np.ndarray:
+    """The kernel's work list for the (i, j) ``pairs`` [n, 2]: one item
+    (i, j, slab) per pair and slab of 128 P rows, [n * ceil(P / 128), 3]
+    int32, C-contiguous, in the order the blocks walk it.
+
+    Pairs go in bands of ``_GROUP`` query images (i // _GROUP), bank image j
+    next, then i, and the slabs of a pair stay adjacent: the items in
+    flight at once then share few operands, which stay in L2
+    (csrc/min_dists.cu, "Tile order")."""
+    pairs = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
+    i, j = pairs[:, 0], pairs[:, 1]
+    pairs = pairs[np.lexsort((i, j, i // _GROUP))]  # last key sorts first
+    n_slabs = -(-p // _BM)
+    items = np.empty((len(pairs), n_slabs, 3), dtype=np.int32)
+    items[:, :, :2] = pairs[:, None, :]
+    items[:, :, 2] = np.arange(n_slabs)
+    return items.reshape(-1, 3)
+
+
+def symmetric_pairs(n: int) -> np.ndarray:
+    """The pairs i <= j of the symmetric mode, [n (n + 1) / 2, 2]."""
+    return np.stack(np.triu_indices(n), axis=1)
+
+
+def all_pairs(n_i: int, n_j: int) -> np.ndarray:
+    """Every pair (i, j) of the rectangular mode, [n_i n_j, 2]."""
+    return np.stack(np.meshgrid(np.arange(n_i), np.arange(n_j),
+                                indexing="ij"), axis=-1).reshape(-1, 2)
+
+
+def _operands(Z: torch.Tensor, bank: torch.Tensor, precision: str,
+              symmetric: bool):
+    """(Z parts, a2, bank parts, b2): the kernel's bf16 operand parts, D
+    zero-padded to a multiple of the 64-deep chunk (zero columns change
+    neither the products nor the norms), and the f32 norms of the unpadded
+    values."""
+    z_parts, a2 = _prep(Z, precision)
+    b_parts, b2 = (z_parts, a2) if symmetric else _prep(bank, precision)
+    pad = (-Z.shape[2]) % _BK
+    if pad:
+        z_parts, b_parts = (tuple(F.pad(t, (0, pad)) for t in parts)
+                            for parts in (z_parts, b_parts))
+    return z_parts, a2.contiguous(), b_parts, b2.contiguous()
+
+
+def _check_operand(name: str, t: torch.Tensor) -> None:
+    """The kernel reads a [N, rows, D] bf16 operand through a TMA tensor
+    map over its N * rows rows: contiguous, D a multiple of the 64-deep
+    chunk, 16-byte aligned, and N * rows within int32 coordinates."""
+    if t.dtype != torch.bfloat16 or t.ndim != 3 or not t.is_contiguous() \
+            or t.shape[2] % _BK or t.data_ptr() % 16 \
+            or t.shape[0] * t.shape[1] >= 2 ** 31:
+        raise ValueError(
+            f"{name}: the kernel needs a contiguous [N, rows, D] bfloat16 "
+            f"with D a multiple of {_BK}, 16-byte aligned, N * rows < 2^31; "
+            f"got {tuple(t.shape)} {t.dtype} strides {t.stride()} at offset "
+            f"{t.data_ptr() % 16} (mod 16)")
+
+
 _FN = None
 
 
@@ -174,40 +235,34 @@ _RECT, _SYM, _WIN = 0, 1, 2
 
 
 def _launch(Z: torch.Tensor, bank: torch.Tensor, precision: str, mode: int,
-            pairs: torch.Tensor, out: torch.Tensor,
+            pairs: np.ndarray, out: torch.Tensor,
             col: torch.Tensor | None) -> None:
-    """Prepare the bf16 operands and norms and launch the kernel over
-    ``pairs`` [n_pairs, 2] int32 on Z's device, into ``out`` (and ``col``
-    in window mode); raises if the launch fails."""
-    if pairs.dtype != torch.int32 or not pairs.is_contiguous() or \
-            pairs.ndim != 2 or pairs.shape[1] != 2:
-        raise ValueError("the pair list must be a contiguous [n, 2] int32")
-    n_i, p, d = Z.shape
+    """Prepare the bf16 operands, the norms and the work list of ``pairs``
+    [n_pairs, 2] and launch the kernel on Z's device, into ``out`` (and
+    ``col`` in window mode); raises if the launch fails."""
+    n_i, p, _ = Z.shape
     n_j, q, _ = bank.shape
-    z_parts, a2 = _prep(Z, precision)
-    if mode == _SYM:
-        b_parts, b2 = z_parts, a2
-    else:
-        b_parts, b2 = _prep(bank, precision)
-    pad = (-d) % _BK
-    if pad:  # zero columns change neither the products nor the norms
-        z_parts = tuple(F.pad(t, (0, pad)) for t in z_parts)
-        b_parts = tuple(F.pad(t, (0, pad)) for t in b_parts)
-    z_parts = tuple(t.contiguous() for t in z_parts)
-    b_parts = tuple(t.contiguous() for t in b_parts)
-    a2, b2 = a2.contiguous(), b2.contiguous()
+    items = work_items(pairs, p)
+    if len(items) >= 2 ** 31:
+        raise ValueError(f"{len(items)} work items: more than int32 counts")
+    z_parts, a2, b_parts, b2 = _operands(Z, bank, precision, mode == _SYM)
+    for name, parts in (("Z", z_parts), ("bank", b_parts)):
+        for part, t in zip(("hi", "lo"), parts):
+            _check_operand(f"{name} {part}", t)
     comp = precision != "bf16"
-    fn = _kernel_fn()
     dev = Z.device
+    # the work list comes from the host through pinned memory: no sync
+    items = torch.from_numpy(items).pin_memory().to(dev, non_blocking=True)
+    fn = _kernel_fn()
     with torch.cuda.device(dev):
         rc = fn(z_parts[0].data_ptr(),
                 z_parts[1].data_ptr() if comp else None,
                 b_parts[0].data_ptr(),
                 b_parts[1].data_ptr() if comp else None,
-                a2.data_ptr(), b2.data_ptr(), pairs.data_ptr(),
-                pairs.shape[0], out.data_ptr(),
+                a2.data_ptr(), b2.data_ptr(), items.data_ptr(),
+                items.shape[0], out.data_ptr(),
                 col.data_ptr() if col is not None else None,
-                n_i, n_j, p, q, d + pad, int(comp), mode,
+                n_i, n_j, p, q, z_parts[0].shape[2], int(comp), mode,
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"min_dists kernel launch failed: cudaError {rc}")
@@ -222,15 +277,14 @@ def _min_dists_cuda(Z: torch.Tensor, bank: torch.Tensor, precision: str,
     n_j = bank.shape[0]
     dev = Z.device
     if symmetric:
-        pairs = torch.triu_indices(n_i, n_i, device=dev).t()
+        pairs = symmetric_pairs(n_i)
         out = torch.full((n_i, n_j, p), float("inf"), dtype=torch.float32,
                          device=dev)
     else:
-        pairs = torch.cartesian_prod(torch.arange(n_i, device=dev),
-                                     torch.arange(n_j, device=dev))
+        pairs = all_pairs(n_i, n_j)
         out = torch.empty((n_i, n_j, p), dtype=torch.float32, device=dev)
-    _launch(Z, bank, precision, _SYM if symmetric else _RECT,
-            pairs.to(torch.int32).contiguous(), out, None)
+    _launch(Z, bank, precision, _SYM if symmetric else _RECT, pairs, out,
+            None)
     LAUNCHES += 1
     return out
 
@@ -260,14 +314,12 @@ def _min_dists_window_cuda(Z: torch.Tensor, bank_window: torch.Tensor,
     n_i, p, _ = Z.shape
     n_w, q, _ = bank_window.shape
     dev = Z.device
-    # the pair list comes from the host through pinned memory: no sync
-    pairs = torch.from_numpy(window_pairs(n_i, n_w, window)).pin_memory()
-    pairs = pairs.to(dev, non_blocking=True)
     row = torch.full((n_i, n_w, p), float("inf"), dtype=torch.float32,
                      device=dev)
     col = torch.full((n_w, n_i, q), float("inf"), dtype=torch.float32,
                      device=dev)
-    _launch(Z, bank_window, precision, _WIN, pairs, row, col)
+    _launch(Z, bank_window, precision, _WIN,
+            window_pairs(n_i, n_w, window), row, col)
     WINDOW_LAUNCHES += 1
     return row, col
 
