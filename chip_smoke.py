@@ -46,11 +46,25 @@ Phases, each fatal on failure:
      category through the rect scheme and one through the sharded
      supervised path (the rectangular kernel on the mesh); sweep img/s,
      alpha ms a category, one profiled sweep;
-  7. timings at the main path's shapes: each kernel beside its bound, its
+  7. PatchCore path: the flagship recipe through tpu_ac_torch.cli.
+     patchcore with --compute_pro on a synthetic category of 220 train / 83
+     test images (256 px sources): wideresnet50 on its seeded init, layer2
+     + layer3, 1024 -> 1024, patchsize 3, 10% approximate greedy coreset,
+     exact kNN with k = 5, batch 8; results.csv complete, every AUROC and
+     the PRO in [0, 1]; fit and predict s and img/s on the CLI's own
+     builder, bank rows before and after the coreset, the coreset at k = 1
+     and at select_batch 16, the predict's kNN beside its bound and its
+     product alone; kNN against a float64 host search on 2,048 queries,
+     knn_sharded on 2 x cuda:0 against knn, the coreset's picks against
+     the CPU's on 16,384 projected rows, the segmentor against scipy's
+     gaussian_filter on 4 images; one profiled fit + predict.  No
+     hand-written kernel lies on this path (asserted: no launches);
+  8. timings at the main path's shapes: each kernel beside its bound, its
      plain version and a library yardstick (cdist; scaled_dot_product_
-     attention), which the port never calls; for min_dists also cuBLAS
-     (torch.matmul) on the same bf16 products without the min (gemm_ms);
-     the window kernel at one rank's shape of N = 168 over dp = 2.
+     attention, bf16 and f32), which the port never calls; for min_dists
+     also cuBLAS (torch.matmul) on the same bf16 products without the min
+     (gemm_ms); the window kernel at one rank's shape of N = 168 over
+     dp = 2.
 The build's ptxas report (registers, shared memory, spills) is printed for
 every kernel instance.
 Before the card's line come the run's end-to-end numbers as one summary
@@ -523,7 +537,8 @@ def phase_flash_kernel(torch, attn) -> float:
 def phase_flash_timing(torch, attn) -> dict:
     """Times at the flash path's shape, bf16: the kernel, its plain
     version, the dense bf16 attention the ViT runs without it, and
-    scaled_dot_product_attention as the library yardstick."""
+    scaled_dot_product_attention as the library yardstick; then the f32
+    variant, its plain version and scaled_dot_product_attention in f32."""
     import torch.nn.functional as F
 
     b, h, s, dh = FLASH_SHAPE
@@ -566,14 +581,17 @@ def phase_flash_timing(torch, attn) -> dict:
     f32_plain_ms, _ = _time_ms(
         lambda: attn.flash_attention_plain(q, k, v, scale), reps=20,
         warmup=3)
+    f32_library_ms, _ = _time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, scale=scale), reps=20, warmup=3)
     print(f"timing flash f32 [{b}, {h}, {s}, {dh}]: kernel {f32_ms:.4f} ms "
           f"({flops / f32_ms / 1e9:.1f} TFLOP/s), bound "
           f"{flops / PEAK_F32_FLOPS * 1e3:.4f} ms (operations, f32 FMA "
-          f"peak), plain {f32_plain_ms:.4f} ms", flush=True)
+          f"peak), plain {f32_plain_ms:.4f} ms, scaled_dot_product_attention"
+          f" f32 {f32_library_ms:.4f} ms", flush=True)
     return dict(ms=ms, host_ms=host_ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=bound_by, library_ms=library_ms, dense_ms=dense_ms,
-                f32_ms=f32_ms,
-                f32_plain_ms=f32_plain_ms, max_abs_err=err)
+                f32_ms=f32_ms, f32_plain_ms=f32_plain_ms,
+                f32_library_ms=f32_library_ms, max_abs_err=err)
 
 
 def _make_tree(work: str, sizes: dict[str, int]) -> str:
@@ -728,28 +746,36 @@ def phase_main_path(torch, dist, attn, work: str, root: str,
 
 
 def _profile_sweep(torch, sweep, sweep_s: float) -> float:
-    """One more sweep under torch.profiler: the device time by kernel, and
-    its sum against the unprofiled sweep's wall time (the busy share, in %,
-    returned; it ignores overlap between the copy engines and the
-    kernels)."""
+    """One more sweep under torch.profiler (see _profile_busy)."""
+    def drain():
+        for _c, _r in sweep():
+            pass
+
+    return _profile_busy(torch, drain, sweep_s, "one sweep")
+
+
+def _profile_busy(torch, work, wall_s: float, label: str) -> float:
+    """``work()`` once more under torch.profiler: the device time by
+    kernel, and its sum against the unprofiled run's wall time (the busy
+    share, in %, returned; it ignores overlap between the copy engines and
+    the kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _c, _r in sweep():
-            pass
+        work()
         torch.cuda.synchronize()
     rows = [(e.self_device_time_total / 1e3, e.count, e.key)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(r[0] for r in rows)
-    print(f"profile of one sweep: device busy {busy_ms:.1f} ms of the "
-          f"unprofiled sweep's {sweep_s * 1e3:.1f} ms ("
-          f"{100 * busy_ms / (sweep_s * 1e3):.1f}% busy)", flush=True)
+    print(f"profile of {label}: device busy {busy_ms:.1f} ms of the "
+          f"unprofiled run's {wall_s * 1e3:.1f} ms ("
+          f"{100 * busy_ms / (wall_s * 1e3):.1f}% busy)", flush=True)
     for ms, count, key in sorted(rows, reverse=True)[:10]:
-        print(f"  {ms:9.2f} ms {100 * ms / busy_ms:5.1f}% x{count:<5d} "
+        print(f"  {ms:9.2f} ms {100 * ms / busy_ms:5.1f}% x{count:<6d} "
               f"{key[:90]}", flush=True)
-    return 100 * busy_ms / (sweep_s * 1e3)
+    return 100 * busy_ms / (wall_s * 1e3)
 
 
 def _rel_gap(torch, a, b) -> float:
@@ -1045,6 +1071,211 @@ def phase_mesh_path(torch, dist, attn, work: str, root: str,
                 embed_gaps=embed_gaps)
 
 
+# the flagship PatchCore recipe's category: MVTec bottle's 83 test images
+# (20 good, 63 with defects) and 220 train images
+PC_TRAIN = 220
+PC_TEST = (("good", 20), ("broken_large", 20), ("broken_small", 22),
+           ("contamination", 21))
+
+
+def _make_patchcore_tree(work: str) -> str:
+    from tpu_ac_torch.data.mvtec import make_synthetic_mvtec
+
+    root = os.path.join(work, "mvtec_patchcore")
+    for i, (anomaly, n) in enumerate(PC_TEST):
+        make_synthetic_mvtec(root, classname="bottle", anomalies=(anomaly,),
+                             n_per_anomaly=n,
+                             n_train=PC_TRAIN if i == 0 else 0,
+                             image_size=256, seed=10 + i)
+    return root
+
+
+def _check_results_csv(path: str) -> dict:
+    """results.csv: the category's row and the Mean row, every AUROC and
+    the PRO finite and in [0, 1]."""
+    import csv
+
+    with open(os.path.join(path, "results.csv"), newline="") as f:
+        rows = list(csv.DictReader(f))
+    keys = ["instance_auroc", "full_pixel_auroc", "anomaly_pixel_auroc",
+            "full_pro"]
+    if [r["dataset_name"] for r in rows] != ["mvtec_bottle", "Mean"] or \
+            list(rows[0]) != ["dataset_name", *keys] or not all(
+                0.0 <= float(r[k]) <= 1.0 for r in rows for k in keys):
+        _fatal(f"patchcore results.csv incomplete or out of [0, 1]: {rows}")
+    print(f"patchcore results.csv: {rows[0]}", flush=True)
+    return {k: float(rows[0][k]) for k in keys}
+
+
+def _knn_check(torch, np, q, bank, k: int) -> int:
+    """knn on the card against a float64 search on the host: squared
+    distances within 1e-4 of |q|^2 + max|b|^2 (_check_agree's rule), index
+    sets equal wherever the k-th and (k+1)-th distances differ by more
+    than that.  Returns the number of rows whose sets were compared."""
+    from tpu_ac_torch.ops.distances import knn
+
+    d2, idx = knn(q, bank, k)
+    q64, b64 = q.double().cpu().numpy(), bank.double().cpu().numpy()
+    full = ((q64 ** 2).sum(1)[:, None] + (b64 ** 2).sum(1)[None]
+            - 2.0 * q64 @ b64.T)
+    part = np.argpartition(full, k + 1, axis=1)[:, :k + 1]
+    ref = np.take_along_axis(full, part, 1)
+    order = np.argsort(ref, axis=1)
+    ref, part = np.take_along_axis(ref, order, 1), np.take_along_axis(
+        part, order, 1)
+    tol = D2_RTOL * ((q64 ** 2).sum(1) + (b64 ** 2).sum(1).max())
+    gap = np.abs(d2.cpu().numpy() - ref[:, :k]) / tol[:, None]
+    clear = ref[:, k] - ref[:, k - 1] > tol
+    same = (np.sort(idx.cpu().numpy(), 1) == np.sort(part[:, :k], 1)).all(1)
+    print(f"patchcore knn on the card vs float64 on the host ({len(q)} "
+          f"queries x {len(bank)} rows, k={k}): max |d2 gap| / tol = "
+          f"{gap.max():.3e}, index sets equal on {int(same[clear].sum())} "
+          f"of {int(clear.sum())} rows without a tie at the k-th place",
+          flush=True)
+    if not (gap.max() <= 1.0 and same[clear].all()):
+        _fatal("patchcore knn disagrees with the float64 search")
+    return int(clear.sum())
+
+
+def phase_patchcore(torch, work: str) -> dict:
+    """The flagship PatchCore recipe through tpu_ac_torch.cli.patchcore:
+    wideresnet50 (seeded init) layer2 + layer3, 1024 -> 1024, patchsize 3,
+    256 -> 224 px, 220 train / 83 test images, the CLI defaults (10%
+    approximate greedy coreset, exact scorer, k = 5, batch 8) with
+    --compute_pro; then fit and predict timed on the CLI's own builder,
+    the coreset at k = 1 and 16, the predict's kNN, the checks of kNN,
+    sharded kNN, coreset and blur against their plain versions, and one
+    profiled fit + predict."""
+    import numpy as np
+    from scipy import ndimage
+
+    from tpu_ac_torch.cli import patchcore as cli
+    from tpu_ac_torch.data.mvtec import DatasetSplit, MVTecDataset
+    from tpu_ac_torch.detect import ApproximateGreedyCoresetSampler
+    from tpu_ac_torch.detect.sampler import _project
+    from tpu_ac_torch.distributed import Mesh
+    from tpu_ac_torch.ops.distances import knn, knn_sharded
+    from tpu_ac_torch.ops.interpolate import interpolate_bilinear
+
+    root = _make_patchcore_tree(work)
+    out = os.path.join(work, "patchcore")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cli.main([out, "--data_path", root, "--subdatasets", "bottle",
+              "--compute_pro"])
+    cli_s = time.perf_counter() - t0
+    metrics = _check_results_csv(out)
+
+    # the CLI's own builder on its defaults, timed outside the CLI's run
+    args = cli.build_parser().parse_args([out, "--data_path", root])
+    pc = cli._build_patchcore("wideresnet50", ["layer2", "layer3"], args)
+    train, test = (MVTecDataset(root, classname="bottle", split=sp)
+                   .load_all_images()
+                   for sp in (DatasetSplit.TRAIN, DatasetSplit.TEST))
+    k = args.anomaly_scorer_num_nn
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t
+
+    _, fit_s = timed(lambda: pc.fit(train))
+    (scores, masks), predict_s = timed(lambda: pc.predict(test))
+    bank = pc.anomaly_scorer.detection_features
+    if not (np.isfinite(scores).all() and np.isfinite(masks).all()
+            and masks.shape == (len(test), 224, 224)):
+        _fatal("patchcore predict: non-finite scores or masks of the wrong "
+               f"shape {masks.shape}")
+    with torch.inference_mode():
+        z, embed_s = timed(lambda: pc._embed_all(train))
+        full = z.reshape(-1, z.shape[-1])
+        del z
+        coreset_s = {}
+        for sb in (1, 16):
+            sampler = ApproximateGreedyCoresetSampler(
+                args.percentage, seed=args.seed, select_batch=sb)
+            picked, coreset_s[sb] = timed(lambda: sampler.run(full))
+            if picked.shape != bank.shape:
+                _fatal(f"coreset of {picked.shape}, want {bank.shape}")
+        q = pc._embed_all(test)
+        q = q.reshape(-1, q.shape[-1])
+        knn_ms, _ = _time_ms(lambda: knn(q, bank, k), reps=3)
+        matmul_ms, _ = _time_ms(lambda: torch.matmul(q, bank.T), reps=3)
+    m, n, d = q.shape[0], bank.shape[0], bank.shape[1]
+    knn_flops = 2.0 * m * n * d
+    knn_bound = max(knn_flops / PEAK_F32_FLOPS,
+                    4.0 * (m * d + n * d + 2 * m * k) / PEAK_HBM_BYTES) * 1e3
+    # the k = 1 loop streams the projected bank once a pick
+    core_bound = len(bank) * full.shape[0] * 128 * 4 / PEAK_HBM_BYTES
+    n_rows = full.shape[0]
+    print(f"patchcore: CLI {cli_s:.1f} s incl. set-up; fit {fit_s:.3f} s "
+          f"({len(train) / fit_s:.1f} img/s; embed {embed_s:.3f} s), predict "
+          f"{predict_s:.3f} s ({len(test) / predict_s:.1f} img/s); bank "
+          f"{n_rows} -> {len(bank)} rows; coreset k=1 {coreset_s[1]:.3f} s "
+          f"(bytes bound {core_bound:.3f} s), select_batch 16 "
+          f"{coreset_s[16]:.3f} s; knn {knn_ms:.2f} ms for {m} queries x {n}"
+          f" x {d} (bound {knn_bound:.2f} ms, f32 FMA peak; its product "
+          f"alone {matmul_ms:.2f} ms, {knn_flops / matmul_ms / 1e9:.1f} "
+          f"TFLOP/s)", flush=True)
+
+    # checks against plain versions on the same inputs
+    clear = _knn_check(torch, np, q[:2048], bank, k)
+    with torch.inference_mode():
+        d6, i6 = knn(q, bank, k + 1)
+        d_s, i_s = knn_sharded(q, bank, k, Mesh(["cuda:0"] * 2))
+    tol = D2_RTOL * (q.square().sum(1) + bank.square().sum(1).max())
+    no_tie = ((d6[:, 1:] - d6[:, :-1]) > tol[:, None]).all(1)
+    d_gap = float(((d_s - d6[:, :k]).abs() / tol[:, None]).max())
+    idx_ok = bool((i_s == i6[:, :k]).all(1)[no_tie].all())
+    print(f"patchcore knn_sharded on 2 x cuda:0 vs knn: max |d2 gap| / tol "
+          f"= {d_gap:.3e}, indices equal on "
+          f"{int((i_s == i6[:, :k]).all(1).sum())} of {m} rows (all "
+          f"{int(no_tie.sum())} rows without a near-tie required)",
+          flush=True)
+    if not (d_gap <= 1.0 and idx_ok):
+        _fatal("patchcore knn_sharded disagrees with knn")
+    with torch.inference_mode():
+        proj = _project(full, 128, args.seed)[:16384].contiguous()
+        sampler = ApproximateGreedyCoresetSampler(args.percentage,
+                                                  seed=args.seed)
+        n_sel = int(len(proj) * args.percentage)
+        on_card = sampler._indices(proj, n_sel).cpu()
+        on_cpu = sampler._indices(proj.cpu(), n_sel)
+    if not torch.equal(on_card, on_cpu):
+        first = int((on_card != on_cpu).nonzero()[0, 0])
+        _fatal(f"coreset picks on the card differ from the CPU's from pick "
+               f"{first} of {n_sel}")
+    print(f"patchcore coreset at k=1 on {len(proj)} projected rows: the "
+          f"card's {n_sel} picks equal the CPU's", flush=True)
+    del full, proj
+    with torch.inference_mode():
+        grid = torch.from_numpy(pc.anomaly_scorer.predict(
+            [q[:4 * 784]])[0]).reshape(4, 28, 28).cuda()
+        seg = pc.anomaly_segmentor.segment(grid).cpu().numpy()
+        up = interpolate_bilinear(grid[:, None], size=(224, 224))[:, 0]
+    want = np.stack([ndimage.gaussian_filter(u, sigma=4.0)
+                     for u in up.cpu().numpy()])
+    seg_gap = float((np.abs(seg - want) / np.abs(want)).max())
+    print(f"patchcore segmentor on the card vs scipy gaussian_filter of the "
+          f"same bilinear grids (4 images): max relative gap {seg_gap:.3e}",
+          flush=True)
+    if not seg_gap <= 1e-5:
+        _fatal("patchcore segmentor disagrees with scipy")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    del q, d6, i6, d_s, i_s, grid
+    busy = _profile_busy(torch, lambda: (pc.fit(train), pc.predict(test)),
+                         fit_s + predict_s, "one fit + predict")
+    return dict(cli_s=cli_s, fit_s=fit_s, predict_s=predict_s,
+                fit_img_s=len(train) / fit_s,
+                predict_img_s=len(test) / predict_s, embed_s=embed_s,
+                bank_rows=[n_rows, len(bank)], coreset_s=coreset_s,
+                knn_ms=knn_ms, knn_bound_ms=knn_bound, matmul_ms=matmul_ms,
+                knn_rows_checked=clear, seg_gap=seg_gap, busy_pct=busy,
+                peak_gib=peak_gib, metrics=metrics)
+
+
 def _print_ptxas(name: str, log: str) -> None:
     """One line per kernel instance of nvcc's ptxas report: registers,
     shared memory, spills; and ptxas's performance warnings."""
@@ -1116,6 +1347,13 @@ def main() -> None:
         launches, run = phase_main_path(torch, dist, attn, work, root, sizes)
         flash_run = phase_flash_path(torch, dist, attn, work, root, sizes)
         mesh_run = phase_mesh_path(torch, dist, attn, work, root, sizes)
+        # no hand-written kernel lies on this path: the counts stay 0
+        dist.LAUNCHES = dist.WINDOW_LAUNCHES = attn.LAUNCHES = 0
+        pc_run = phase_patchcore(torch, work)
+        pc_launches = dist.LAUNCHES + dist.WINDOW_LAUNCHES + attn.LAUNCHES
+        if pc_launches:
+            _fatal(f"the patchcore path launched {pc_launches} kernels of "
+                   "the clustering path")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # the supervised run pads its 84 queries to the 32-image bucket (96)
@@ -1170,6 +1408,7 @@ def main() -> None:
         "flash_gap_over_tol": {d: r4(w) for d, w in FLASH_WORST.items()},
         "flash_f32_ms": r4(t["f32_ms"]),
         "flash_f32_plain_ms": r4(t["f32_plain_ms"]),
+        "flash_f32_library_ms": r4(t["f32_library_ms"]),
         "dense_attention_ms": r4(t["dense_ms"]),
         "embed_ms_per_image": {"dense": r4(run["embed_ms_per_image"]),
                                "flash": r4(flash_run["embed_ms"]["flash"]),
@@ -1186,6 +1425,14 @@ def main() -> None:
         "alpha_gap_flash_dense": float(f"{flash_run['alpha_gap']:.4g}"),
         "convert_s": r4(flash_run["convert_s"]),
         "peak_gib": r4(run["peak_gib"]),
+        "patchcore": {
+            "fit_img_s": r4(pc_run["fit_img_s"]),
+            "predict_img_s": r4(pc_run["predict_img_s"]),
+            "coreset_s": {str(sb): r4(v)
+                          for sb, v in pc_run["coreset_s"].items()},
+            "knn_ms": r4(pc_run["knn_ms"]),
+            "busy_pct": r4(pc_run["busy_pct"]),
+            "instance_auroc": r4(pc_run["metrics"]["instance_auroc"])},
         "mesh": {"sweep_img_s": r4(mesh_run["sweep_img_s"]),
                  "window_ms": r4(window_timing["ms"]),
                  "w_gap_over_bound": float(

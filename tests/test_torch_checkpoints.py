@@ -1,6 +1,6 @@
 """Checkpoints in tpu_ac_torch vs tpu_ac on the CPU: the registry's search
 of the default cache dirs and its checkpoint formats, the convert CLI's
-verify and install, the frozen manifests, and the ViT hub factories.
+verify and install, the frozen manifests, and the hub factories.
 
 The default dirs are monkeypatched in both packages (``_DEFAULT_CKPT_DIRS``
 is computed at import), never ``$HOME``.  Every ``.pth`` is made here with
@@ -33,6 +33,9 @@ NAME = "tiny_ckpt_test"
 FILE = "tiny_ckpt_test.pth"
 VIT_NAMES = ("dino_deitsmall16", "dino_deitsmall8", "dino_deitsmall8_300ep",
              "dino_vitbase16", "dino_vitbase8")
+RESNET_NAMES = ("dino_resnet50", "resnet101", "resnet18", "resnet200",
+                "resnet34", "resnet50", "resnext101", "wideresnet101",
+                "wideresnet50")
 
 
 @pytest.fixture(scope="module")
@@ -203,7 +206,7 @@ def test_convert_cli_refuses_wrong_backbone(deitsmall_checkpoint, tmp_path):
     assert not cache.exists()
 
 
-@pytest.mark.parametrize("name", VIT_NAMES)
+@pytest.mark.parametrize("name", VIT_NAMES + RESNET_NAMES)
 def test_manifest_entries_equal_tpu_ac(name):
     assert tman.load_manifests()[name] == jman.load_manifests()[name]
 
@@ -211,15 +214,16 @@ def test_manifest_entries_equal_tpu_ac(name):
 def test_manifest_covers_the_builtin_names():
     frozen = tman.load_manifests()
     assert sorted(frozen) == sorted(treg.BUILTIN_BACKBONES) == \
-        sorted(VIT_NAMES)
+        sorted(VIT_NAMES + RESNET_NAMES)
     assert len(frozen["dino_vitbase8"]) == 150
+    assert len(frozen["wideresnet50"]) == 267
     assert NAME not in treg.BUILTIN_BACKBONES
 
 
-def test_generated_manifest_equals_frozen():
+@pytest.mark.parametrize("name", ["dino_deitsmall16", "resnet18"])
+def test_generated_manifest_equals_frozen(name):
     """No drift: the architecture's inventory equals the frozen one."""
-    assert tman.generate_manifest("dino_deitsmall16") == \
-        tman.load_manifests()["dino_deitsmall16"]
+    assert tman.generate_manifest(name) == tman.load_manifests()[name]
 
 
 def test_diff_inventory_matches_tpu_ac():
@@ -234,7 +238,8 @@ def test_diff_inventory_matches_tpu_ac():
 
 
 @pytest.mark.parametrize("factory", ["dino_vits16", "dino_vits8",
-                                     "dino_vitb16", "dino_vitb8"])
+                                     "dino_vitb16", "dino_vitb8",
+                                     "dino_resnet50", "wide_resnet50_2"])
 def test_hub_factories_match_tpu_ac(monkeypatch, factory):
     """Each factory names the same registry entry as tpu_ac.hub's, and the
     two registries hold the same config and filename for it."""

@@ -1,6 +1,6 @@
 """The port stands alone: no file of tpu_ac_torch/, not chip_smoke.py and
 not scripts/kernel_ab.py imports jax, jaxlib or tpu_ac (as distinct from
-tpu_ac_torch)."""
+tpu_ac_torch), nor sklearn, which the card's machine does not have."""
 
 import ast
 import os
@@ -8,7 +8,7 @@ import os
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BANNED = ("jax", "jaxlib", "tpu_ac")
+BANNED = ("jax", "jaxlib", "tpu_ac", "sklearn")
 
 
 def _port_files():
@@ -43,7 +43,11 @@ def test_scan_sees_the_package():
     assert os.path.join("scripts", "kernel_ab.py") in names
     for mod in ("kernels/distances.py", "kernels/attention.py",
                 "models/convert.py", "models/manifest.py", "cli/convert.py",
-                "hub.py", "distributed/__init__.py", "distributed/mesh.py"):
+                "hub.py", "distributed/__init__.py", "distributed/mesh.py",
+                "models/resnet.py", "ops/distances.py", "ops/gaussian.py",
+                "detect/__init__.py", "detect/sampler.py", "detect/scorer.py",
+                "detect/segmentor.py", "detect/metrics.py", "detect/approx.py",
+                "detect/patchcore.py", "cli/patchcore.py"):
         assert f"tpu_ac_torch/{mod}" in names
 
 

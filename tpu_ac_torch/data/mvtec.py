@@ -3,7 +3,8 @@
 The directory walk, the (classname, anomaly, filename) iteration order and
 the PIL transform (shorter-edge bilinear resize -> centre crop) are the
 reference's.  Images decode to uint8 CHW on the host and are normalized on
-the device by ``normalize_on_device`` (4x fewer bytes to upload).
+the device by ``normalize_on_device`` (4x fewer bytes to upload);
+ground-truth masks decode to f32 on the host (``load_mask``).
 """
 
 from __future__ import annotations
@@ -58,6 +59,19 @@ def load_image_uint8(path: str, resize: int = 256,
     img = _resize_shorter_edge(img, resize)
     arr = _center_crop(np.asarray(img, dtype=np.uint8), imagesize)
     return arr.transpose(2, 0, 1)
+
+
+def load_mask(path: str | None, resize: int = 256,
+              imagesize: int = 224) -> np.ndarray:
+    """Decode a ground-truth mask to [1, imagesize, imagesize] float32 in
+    [0, 1] (zeros for a normal image, whose ``path`` is None)."""
+    if path is None:
+        return np.zeros((1, imagesize, imagesize), dtype=np.float32)
+    img = _resize_shorter_edge(Image.open(path), resize)
+    arr = np.asarray(img, dtype=np.float32)
+    if arr.ndim == 3:
+        arr = arr[..., 0]
+    return _center_crop(arr / 255.0, imagesize)[None]
 
 
 @functools.lru_cache(maxsize=8)

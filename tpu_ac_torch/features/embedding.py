@@ -1,15 +1,19 @@
-"""Patch-embedding tail for the ViT family (port of
+"""Patch-embedding pipeline for the ViT and ResNet families (port of
 ``tpu_ac.features.embedding``).
 
-Per tapped layer: drop the CLS token, reshape tokens to the [D, G, G]
-grid, ad-hoc LayerNorm over (C, H, W), then patchify (3x3, zero padded) +
-MeanMapper (adaptive pool of the flattened window to
+Per tapped layer: ViT tokens drop the CLS token and reshape to the
+[D, G, G] grid, ResNet maps are used as they come; ad-hoc LayerNorm over
+(C, H, W) unless ``apply_layernorm`` is off (PatchCore), then patchify
+(3x3, zero padded) + MeanMapper (adaptive pool of the flattened window to
 ``pretrain_embed_dimension``); bilinear-align coarser grids onto the
 first; Aggregator (adaptive pool of the stacked layers to
 ``target_embed_dimension``).  With ``patchstride == 1`` patchify+MeanMapper
 is one k x k ``F.conv2d`` whose weight is the banded pooling matrix.  The
 conv and pool matmuls are plain torch ops, as ``tpu_ac`` leaves them to
-XLA; their precision follows the enclosing ``device.precision_scope``.
+XLA; their precision follows the enclosing ``device.precision_scope``,
+except in the ResNet family's tail, which turns TF32 off as ``tpu_ac`` runs
+it at ``HIGHEST`` behind a trunk at XLA's default precision.
+``embed_features`` dispatches on ``FAMILY_EMBEDDERS``.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from tpu_ac_torch.device import precision_scope
+from tpu_ac_torch.models.resnet import ResNet
 from tpu_ac_torch.models.vit import ViT
 from tpu_ac_torch.ops.interpolate import interpolate_bilinear
 from tpu_ac_torch.ops.normalize import adhoc_layernorm
@@ -129,3 +135,30 @@ def embed_vit_features(model: ViT, images: torch.Tensor,
     # prefix so the shared CLS-drop path applies
     skip = model.cfg.num_prefix_tokens - 1
     return embed_feature_maps([outs[t][:, skip:] for t in taps], cfg)
+
+
+def embed_resnet_features(model: ResNet, images: torch.Tensor,
+                          cfg: EmbedConfig) -> torch.Tensor:
+    """[B, 3, H, W] normalized images -> [B, P, target_embed_dimension];
+    ``cfg.layers`` are stage names ("layer2", "layer3").  The trunk runs
+    under the caller's precision scope, the tail with TF32 off."""
+    outs = model(images, taps=cfg.layers)
+    with precision_scope("highest"):
+        return embed_feature_maps([outs[name] for name in cfg.layers], cfg)
+
+
+# family -> embed fn (model, images, cfg, **family kwargs); a family not
+# here is not ported (ROADMAP.md Queue 1 item 9)
+FAMILY_EMBEDDERS = {
+    "vit": embed_vit_features,
+    "resnet": embed_resnet_features,
+}
+
+
+def embed_features(family: str, model, images: torch.Tensor,
+                   cfg: EmbedConfig, **kwargs) -> torch.Tensor:
+    """Family-dispatched _embed: [B, 3, H, W] -> [B, P, target_dim]."""
+    if family not in FAMILY_EMBEDDERS:
+        raise NotImplementedError(
+            f"family {family!r}; ported: {sorted(FAMILY_EMBEDDERS)}")
+    return FAMILY_EMBEDDERS[family](model, images, cfg, **kwargs)

@@ -1,11 +1,11 @@
-"""Model-hub style factories for the DINO ViTs (port of ``tpu_ac.hub``,
-dino-main/hubconf.py:22-75).
+"""Model-hub style factories for the DINO ViTs and ResNet-50 and for
+torchvision's WRN50-2 (port of ``tpu_ac.hub``, dino-main/hubconf.py:22-92).
 
 Each factory returns (module, config, family) with the released weights
 when a converted checkpoint is in the checkpoint cache (nothing is
 downloaded; see ``tpu_ac_torch.models.registry`` for the search path),
-else the seeded random init.  The ResNet, XCiT and WRN factories wait for
-their families (ROADMAP.md Queue 1 items 8-9).
+else the seeded random init.  The XCiT factories wait for their family
+(ROADMAP.md Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -32,3 +32,13 @@ def dino_vitb8(**kw):
     """ViT-B/8 DINO backbone, the anomaly-clustering flagship
     (hubconf.py:64-75)."""
     return load_backbone("dino_vitbase8", **kw)
+
+
+def dino_resnet50(**kw):
+    """ResNet-50 DINO backbone (hubconf.py:78-92)."""
+    return load_backbone("dino_resnet50", **kw)
+
+
+def wide_resnet50_2(**kw):
+    """torchvision WRN50-2 (PatchCore default backbone)."""
+    return load_backbone("wideresnet50", **kw)

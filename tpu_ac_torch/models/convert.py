@@ -1,11 +1,13 @@
 """Torch checkpoints and ``tpu_ac`` params dicts into ``tpu_ac_torch``
-modules (port of ``tpu_ac.models.convert``, the ViT families' part).
+modules (port of ``tpu_ac.models.convert``, the ViT and ResNet families'
+part).
 
-Param keys mirror the torch state_dict names of the released DINO
-checkpoints, and a params dict is numpy arrays under those keys, so one set
-of weights feeds both packages.  ``load_torch_checkpoint`` reads a ``.pth``
-the way ``tpu_ac`` does (sub-dict key, ``state_dict`` wrapper, ``module.`` /
-``backbone.`` prefixes, BN counters dropped) into such a dict;
+Param keys mirror the torch state_dict names of the released DINO and
+torchvision checkpoints, and a params dict is numpy arrays under those
+keys, so one set of weights feeds both packages.
+``load_torch_checkpoint`` reads a ``.pth`` the way ``tpu_ac`` does (sub-dict
+key, ``state_dict`` wrapper, ``module.`` / ``backbone.`` prefixes, BN
+counters dropped) into such a dict;
 ``load_jax_params`` is the checked copy of a params dict into a module.
 ``tpu_ac``'s DenseNet key remap and MoCo renaming are not carried: those
 families are not ported (ROADMAP Queue 1 item 9).

@@ -235,6 +235,8 @@ class ViT(nn.Module):
     ``load_state_dict`` (a DINO ``.pth``).
     """
 
+    family = "vit"
+
     def __init__(self, cfg: ViTConfig):
         super().__init__()
         d = cfg.embed_dim

@@ -50,7 +50,7 @@ from tpu_ac_torch.distributed import (
     sharded_weight_distance_supervised,
     sharded_weight_distance_unsupervised,
 )
-from tpu_ac_torch.features.embedding import EmbedConfig, embed_vit_features
+from tpu_ac_torch.features.embedding import EmbedConfig, embed_features
 from tpu_ac_torch.models.registry import load_backbone
 
 
@@ -107,11 +107,13 @@ class _StagedUpload:
 class CategoryEmbedder:
     """Batched embedding of an image set on one device or over a dp mesh.
 
-    ``model`` is a ``ViT`` (f32, any device); it is moved to ``device`` and,
-    for ``precision="bfloat16"``, cast to bf16.  ``attention_impl``: "auto"
-    is the dense attention, as in ``tpu_ac``; "flash" runs every block's
-    attention through the flash kernel (``kernels/attention.py``), on the
-    true token count (no ``seq_pad``).
+    ``model`` is a ``ViT`` or a ``ResNet`` (f32, any device); it is moved to
+    ``device`` and, for ``precision="bfloat16"``, cast to bf16.  The embed
+    dispatches on its ``family`` (``features.embedding.FAMILY_EMBEDDERS``).
+    ``attention_impl`` (ViT only): "auto" is the dense attention, as in
+    ``tpu_ac``; "flash" runs every block's attention through the flash
+    kernel (``kernels/attention.py``), on the true token count (no
+    ``seq_pad``).
 
     ``mesh``: a ``Mesh`` shards each batch over its positions (one model
     replica per distinct device; ``batch_size`` must divide evenly; then
@@ -126,6 +128,10 @@ class CategoryEmbedder:
                  device="cuda", attention_impl: str = "auto", mesh=None):
         if attention_impl not in ("auto", "flash"):
             raise ValueError(f"attention_impl {attention_impl!r}")
+        self._family = model.family
+        if attention_impl == "flash" and self._family != "vit":
+            raise ValueError(f"attention_impl 'flash' needs a ViT, not the "
+                             f"{self._family} family")
         if mesh == "auto":
             count = torch.cuda.device_count()
             mesh = get_mesh() if (resolve_device(device).type == "cuda" and
@@ -175,9 +181,11 @@ class CategoryEmbedder:
         if images.dtype == torch.uint8:
             images = normalize_on_device(images)
         images = images.to(self._dtype)
+        kw = {"attention_impl": self._attention} \
+            if self._family == "vit" else {}
         with precision_scope(self._cfg.precision), torch.inference_mode():
-            z = embed_vit_features(model, images, self._cfg.embed_config,
-                                   attention_impl=self._attention)
+            z = embed_features(self._family, model, images,
+                               self._cfg.embed_config, **kw)
         return z.to(torch.float32)
 
     def __call__(self, images) -> torch.Tensor:
