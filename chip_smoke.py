@@ -59,7 +59,20 @@ Phases, each fatal on failure:
      the CPU's on 16,384 projected rows, the segmentor against scipy's
      gaussian_filter on 4 images; one profiled fit + predict.  No
      hand-written kernel lies on this path (asserted: no launches);
-  8. timings at the main path's shapes: each kernel beside its bound, its
+  8. zoo: one registry name per family beside those above (ZOO: vgg19_bn,
+     alexnet, densenet201, inception_v4, bninception, resnest50,
+     resnetv2_50_bit, efficientnet_b7, efficientnetv2_l, mnasnet_a1,
+     vit_r50, vit_swin_base, dino_xcit_medium_24_p8, vit_deit_distilled),
+     each at its full registered width on its seeded init, tapped at two
+     layers (~28 x 28 and ~14 x 14 grids at 224 px where the family has
+     them, printed): the card's f32 embedding of 2 images (TF32 off)
+     against the CPU's within ZOO_GAP_BOUND, then the sweep of bottle
+     (84 images) at the CLI defaults with its pickles checked and its
+     symmetric min_dists launches counted (the counts set to 0 before
+     it), embed ms/image, sweep img/s and the peak memory; each model
+     freed before the next; then python -m tpu_ac_torch.cli.main and
+     cli.evaluate on dino_xcit_medium_24_p8, each a process of its own;
+  9. timings at the main path's shapes: each kernel beside its bound, its
      plain version and a library yardstick (cdist; scaled_dot_product_
      attention, bf16 and f32), which the port never calls; for min_dists
      also cuBLAS (torch.matmul) on the same bf16 products without the min
@@ -608,7 +621,7 @@ def _make_tree(work: str, sizes: dict[str, int]) -> str:
 
 
 def _check_pickles(out_dir: str, cfg, supervised: str, cats,
-                   sizes: dict[str, int]) -> None:
+                   sizes: dict[str, int], n_patches: int = 784) -> None:
     """The stage-1 artifacts: shapes, finite values, alpha rows sum to 1."""
     import numpy as np
 
@@ -620,7 +633,7 @@ def _check_pickles(out_dir: str, cfg, supervised: str, cats,
         alpha, X = load_alpha_X(os.path.join(
             d, f"matrix_alpha_X_{cat}_{supervised}.pickle"))
         n = sizes[cat]
-        if alpha.shape != (n, 1, 784) or X.shape != (n, 4096):
+        if alpha.shape != (n, 1, n_patches) or X.shape != (n, 4096):
             _fatal(f"{cat} {supervised}: shapes {alpha.shape} {X.shape}")
         if not (np.isfinite(alpha).all() and np.isfinite(X).all()):
             _fatal(f"{cat} {supervised}: non-finite alpha or X")
@@ -1276,6 +1289,173 @@ def phase_patchcore(torch, work: str) -> dict:
                 peak_gib=peak_gib, metrics=metrics)
 
 
+# The zoo: one registry name per family beside the ViT-B/8 and WRN50 of
+# the earlier paths, each at its full registered width, tapped at two
+# layers giving ~28 x 28 and ~14 x 14 grids at 224 px where the family has
+# them (PatchCore's layer2 + layer3): AlexNet 27 + 13, Inception-v4 25 +
+# 12, and the R50+ViT hybrid's one 7 x 7 token grid.
+ZOO = (
+    ("vgg19_bn", ("stage4", "stage5")),
+    ("alexnet", ("conv2", "conv5")),
+    ("densenet201", ("denseblock2", "denseblock3")),
+    ("inception_v4", ("features.9", "features.17")),
+    ("bninception", ("inception_3b", "inception_4d")),
+    ("resnest50", ("layer2", "layer3")),
+    ("resnetv2_50_bit", ("stage2", "stage3")),
+    ("efficientnet_b7", ("stage3", "stage5")),
+    ("efficientnetv2_l", ("stage3", "stage5")),
+    ("mnasnet_a1", ("stage3", "stage5")),
+    ("vit_r50", ("blocks.22", "blocks.23")),
+    ("vit_swin_base", ("layers.1", "layers.2")),
+    ("dino_xcit_medium_24_p8", ("blocks.22", "blocks.23")),
+    ("vit_deit_distilled", ("blocks.10", "blocks.11")),
+)
+# The card against the CPU, both in f32 with TF32 off: max |gap| / max
+# |value| of the [2, P, 4096] embedding.  Derivation: a K-term f32 dot
+# product summed in another order moves by about sqrt(K) u (u = 2^-24;
+# K <= 7 x 7 x 2048 here, so <= 1.9e-5 relative); cuDNN's Winograd and
+# FFT algorithms for f32 convs can add up to ~10x that per layer; over
+# the deepest trunk's ~100 dependent layers a random walk of such steps
+# gives sqrt(100) x ~2e-5 x ~5 = 1e-3.  The tail is the same torch code on
+# both sides.  A port error (a pad, a pool count, a mask) moves whole
+# border rows by O(1), far above it.
+ZOO_GAP_BOUND = 1e-3
+
+
+def _zoo_cli(work: str, root: str) -> dict:
+    """cli.main + cli.evaluate as a user runs them, each in a process of
+    its own, on a family of this slice (dino_xcit_medium_24_p8, the CLI
+    defaults: blocks.10 + blocks.11, 2048 -> 4096, bf16, batch 8)."""
+    from tpu_ac_torch.pipeline import PipelineConfig
+
+    out = os.path.join(work, "zoo_cli")
+    name = "dino_xcit_medium_24_p8"
+    common = ["--path", root, "--output_dir", out, "--backbone_names", name,
+              "--categories", "bottle"]
+    env = dict(os.environ, PYTHONPATH=HERE)
+    times = {}
+    for stage, extra in (("main", []),
+                         ("evaluate", ["--tau_list", "1.0",
+                                       "--supervised_modes",
+                                       "unsupervised"])):
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", f"tpu_ac_torch.cli.{stage}", *common,
+             *extra], cwd=HERE, env=env, capture_output=True, text=True,
+            timeout=300)
+        times[stage] = time.perf_counter() - t0
+        if run.returncode:
+            print(run.stdout[-3000:], run.stderr[-3000:], sep="\n",
+                  file=sys.stderr)
+            _fatal(f"python -m tpu_ac_torch.cli.{stage} --backbone_names "
+                   f"{name} exited {run.returncode}")
+    _check_pickles(out, PipelineConfig(backbone_name=name), "unsupervised",
+                   ["bottle"], {"bottle": 84})
+    csv_path = os.path.join(out, "mvtec_ad", name, "unsupervised",
+                            "blocks.10_blocks.11_2048_4096_tau_result.csv")
+    with open(csv_path) as f:
+        rows = [r.split(",") for r in f.read().splitlines()]
+    scored = [r for r in rows if r[0] == "bottle"]
+    if len(scored) != 1 or not all(math.isfinite(float(v))
+                                   for v in scored[0][1:]):
+        _fatal(f"{name} metrics CSV incomplete: {rows}")
+    print(f"zoo CLI {name}: cli.main {times['main']:.1f} s, cli.evaluate "
+          f"{times['evaluate']:.1f} s (processes of their own, set-up "
+          f"included); bottle NMI/ARI/F1 {scored[0][1:]}", flush=True)
+    return times
+
+
+def phase_zoo(torch, dist, attn, work: str, root: str) -> dict:
+    """Each ZOO name at full width on its seeded init: the card's f32
+    embedding of 2 images against the CPU's, then the clustering sweep of
+    the 84-image bottle category at the CLI defaults (bf16, batch 8,
+    unsupervised, tau 1, 2048 -> 4096) with its pickles checked and its
+    symmetric min_dists launches counted, embed ms/image, sweep img/s and
+    the peak memory; then cli.main + cli.evaluate on an XCiT."""
+    import gc
+
+    import numpy as np
+
+    from tpu_ac_torch.data.mvtec import (
+        DatasetSplit,
+        MVTecDataset,
+        normalize_on_device,
+    )
+    from tpu_ac_torch.device import precision_scope
+    from tpu_ac_torch.features.embedding import EmbedConfig, embed_features
+    from tpu_ac_torch.models.registry import load_backbone
+    from tpu_ac_torch.pipeline import (
+        CategoryEmbedder,
+        PipelineConfig,
+        run_category_sweep,
+    )
+
+    images = MVTecDataset(root, classname="bottle",
+                          split=DatasetSplit.TEST).load_all_images()
+    x_cpu = normalize_on_device(torch.from_numpy(images[:2]))
+    out = os.path.join(work, "zoo")
+    rows = {}
+    for name, taps in ZOO:
+        t_start = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        model, _cfg, family = load_backbone(name, use_checkpoint=False)
+        n_params = sum(t.numel() for t in model.state_dict().values())
+        ecfg = EmbedConfig(layers=taps)
+        with precision_scope("highest"), torch.inference_mode():
+            z_cpu = embed_features(family, model, x_cpu, ecfg)
+            model.to("cuda")
+            z_card = embed_features(family, model, x_cpu.cuda(), ecfg).cpu()
+        gap = float((z_card - z_cpu).abs().max() / z_cpu.abs().max())
+        if not (z_card.shape == z_cpu.shape and gap <= ZOO_GAP_BOUND):
+            _fatal(f"zoo {name}: the card's f32 embedding is "
+                   f"{gap:.3e} (of max |value|) from the CPU's, bound "
+                   f"{ZOO_GAP_BOUND}")
+        n_patches = z_card.shape[1]
+        cfg = PipelineConfig(backbone_name=name, layers=taps, batch_size=8,
+                             precision="bfloat16")
+        emb = CategoryEmbedder(model, cfg, device="cuda", mesh=None)
+        emb(images)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        emb(images)
+        torch.cuda.synchronize()
+        embed_ms = (time.perf_counter() - t0) * 1e3 / len(images)
+        dist.LAUNCHES = dist.WINDOW_LAUNCHES = attn.LAUNCHES = 0
+        for _c, _r in run_category_sweep(root, ["bottle"], cfg, emb,
+                                         output_dir=out):
+            pass
+        launches = dist.LAUNCHES
+        if launches <= 0 or dist.WINDOW_LAUNCHES or attn.LAUNCHES:
+            _fatal(f"zoo {name}: the sweep launched min_dists {launches} "
+                   f"times (window {dist.WINDOW_LAUNCHES}, flash "
+                   f"{attn.LAUNCHES}); want the symmetric kernel only")
+        _check_pickles(out, cfg, "unsupervised", ["bottle"],
+                       {"bottle": len(images)}, n_patches)
+        t0 = time.perf_counter()
+        for _c, _r in run_category_sweep(root, ["bottle"], cfg, emb):
+            pass
+        sweep_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rows[name] = dict(family=family, taps=list(taps),
+                          params=n_params, patches=n_patches,
+                          embed_ms=embed_ms,
+                          sweep_img_s=len(images) / sweep_s,
+                          gap=gap, launches=launches, peak_gib=peak,
+                          phase_s=time.perf_counter() - t_start)
+        print(f"zoo {name} ({family}, taps {', '.join(taps)} -> "
+              f"{n_patches} patches): {n_params / 1e6:.1f} M params, embed "
+              f"{embed_ms:.3f} ms/image (bf16, batch 8), sweep "
+              f"{len(images) / sweep_s:.1f} img/s, card vs CPU f32 gap "
+              f"{gap:.3e} (bound {ZOO_GAP_BOUND}), min_dists launches "
+              f"{launches}, peak {peak:.2f} GiB, "
+              f"{rows[name]['phase_s']:.1f} s", flush=True)
+        del model, emb, z_cpu, z_card
+        gc.collect()
+        torch.cuda.empty_cache()
+    cli_s = _zoo_cli(work, root)
+    return dict(rows=rows, cli_s=cli_s)
+
+
 def _print_ptxas(name: str, log: str) -> None:
     """One line per kernel instance of nvcc's ptxas report: registers,
     shared memory, spills; and ptxas's performance warnings."""
@@ -1354,6 +1534,9 @@ def main() -> None:
         if pc_launches:
             _fatal(f"the patchcore path launched {pc_launches} kernels of "
                    "the clustering path")
+        t0 = time.perf_counter()
+        zoo_run = phase_zoo(torch, dist, attn, work, root)
+        zoo_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # the supervised run pads its 84 queries to the 32-image bucket (96)
@@ -1433,6 +1616,14 @@ def main() -> None:
             "knn_ms": r4(pc_run["knn_ms"]),
             "busy_pct": r4(pc_run["busy_pct"]),
             "instance_auroc": r4(pc_run["metrics"]["instance_auroc"])},
+        "zoo": {"phase_s": r4(zoo_s),
+                "cli_s": {k: r4(v) for k, v in zoo_run["cli_s"].items()},
+                **{name: {"embed_ms": r4(r["embed_ms"]),
+                          "sweep_img_s": r4(r["sweep_img_s"]),
+                          "gap": float(f"{r['gap']:.4g}"),
+                          "launches": r["launches"],
+                          "peak_gib": r4(r["peak_gib"])}
+                   for name, r in zoo_run["rows"].items()}},
         "mesh": {"sweep_img_s": r4(mesh_run["sweep_img_s"]),
                  "window_ms": r4(window_timing["ms"]),
                  "w_gap_over_bound": float(

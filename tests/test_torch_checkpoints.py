@@ -31,11 +31,8 @@ from tpu_ac_torch.models.convert import load_torch_checkpoint
 CFG = dict(patch_size=8, embed_dim=64, depth=2, num_heads=4, img_size=32)
 NAME = "tiny_ckpt_test"
 FILE = "tiny_ckpt_test.pth"
-VIT_NAMES = ("dino_deitsmall16", "dino_deitsmall8", "dino_deitsmall8_300ep",
-             "dino_vitbase16", "dino_vitbase8")
-RESNET_NAMES = ("dino_resnet50", "resnet101", "resnet18", "resnet200",
-                "resnet34", "resnet50", "resnext101", "wideresnet101",
-                "wideresnet50")
+# every built-in name of tpu_ac's registry: 56, in 15 families
+BUILTIN_NAMES = tuple(sorted(jreg.BUILTIN_BACKBONES))
 
 
 @pytest.fixture(scope="module")
@@ -206,7 +203,18 @@ def test_convert_cli_refuses_wrong_backbone(deitsmall_checkpoint, tmp_path):
     assert not cache.exists()
 
 
-@pytest.mark.parametrize("name", VIT_NAMES + RESNET_NAMES)
+@pytest.mark.parametrize("name", BUILTIN_NAMES)
+def test_registry_rows_equal_tpu_ac(name):
+    """The same family, config, filename and checkpoint key per name."""
+    jspec, tspec = jreg.BACKBONE_CONFIGS[name], treg.BACKBONE_CONFIGS[name]
+    assert dataclasses.asdict(tspec.config) == \
+        dataclasses.asdict(jspec.config)
+    assert (tspec.family, tspec.checkpoint, tspec.checkpoint_key) == \
+        (jspec.family, jspec.checkpoint, jspec.checkpoint_key)
+    assert tspec.family in treg.FAMILY_MODELS
+
+
+@pytest.mark.parametrize("name", BUILTIN_NAMES)
 def test_manifest_entries_equal_tpu_ac(name):
     assert tman.load_manifests()[name] == jman.load_manifests()[name]
 
@@ -214,15 +222,18 @@ def test_manifest_entries_equal_tpu_ac(name):
 def test_manifest_covers_the_builtin_names():
     frozen = tman.load_manifests()
     assert sorted(frozen) == sorted(treg.BUILTIN_BACKBONES) == \
-        sorted(VIT_NAMES + RESNET_NAMES)
+        list(BUILTIN_NAMES)
+    assert len(BUILTIN_NAMES) == 56
     assert len(frozen["dino_vitbase8"]) == 150
     assert len(frozen["wideresnet50"]) == 267
     assert NAME not in treg.BUILTIN_BACKBONES
 
 
-@pytest.mark.parametrize("name", ["dino_deitsmall16", "resnet18"])
+@pytest.mark.parametrize("name", BUILTIN_NAMES)
 def test_generated_manifest_equals_frozen(name):
-    """No drift: the architecture's inventory equals the frozen one."""
+    """No drift: the architecture's inventory (its module built on the
+    meta device, so the 0.9 G-parameter names cost nothing) equals the
+    frozen one."""
     assert tman.generate_manifest(name) == tman.load_manifests()[name]
 
 
@@ -239,7 +250,11 @@ def test_diff_inventory_matches_tpu_ac():
 
 @pytest.mark.parametrize("factory", ["dino_vits16", "dino_vits8",
                                      "dino_vitb16", "dino_vitb8",
-                                     "dino_resnet50", "wide_resnet50_2"])
+                                     "dino_resnet50", "wide_resnet50_2",
+                                     "dino_xcit_small_12_p16",
+                                     "dino_xcit_small_12_p8",
+                                     "dino_xcit_medium_24_p16",
+                                     "dino_xcit_medium_24_p8"])
 def test_hub_factories_match_tpu_ac(monkeypatch, factory):
     """Each factory names the same registry entry as tpu_ac.hub's, and the
     two registries hold the same config and filename for it."""

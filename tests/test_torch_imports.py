@@ -47,8 +47,29 @@ def test_scan_sees_the_package():
                 "models/resnet.py", "ops/distances.py", "ops/gaussian.py",
                 "detect/__init__.py", "detect/sampler.py", "detect/scorer.py",
                 "detect/segmentor.py", "detect/metrics.py", "detect/approx.py",
-                "detect/patchcore.py", "cli/patchcore.py"):
+                "detect/patchcore.py", "cli/patchcore.py",
+                "models/layers.py", "models/vgg.py", "models/densenet.py",
+                "models/inception.py", "models/resnest.py",
+                "models/resnetv2.py", "models/efficientnet.py",
+                "models/vit_hybrid.py", "models/swin.py", "models/xcit.py"):
         assert f"tpu_ac_torch/{mod}" in names
+
+
+def test_hub_has_every_factory_of_tpu_ac():
+    """Every factory of tpu_ac.hub has its counterpart, and the port's
+    module (scanned above) imports no JAX to provide it."""
+    import inspect
+
+    from tpu_ac import hub as jhub
+    from tpu_ac_torch import hub as thub
+
+    def factories(mod):
+        return {n for n, f in inspect.getmembers(mod, inspect.isfunction)
+                if f.__module__ == mod.__name__}
+
+    assert factories(thub) == factories(jhub)
+    assert {"dino_xcit_small_12_p16", "dino_xcit_medium_24_p8"} <= \
+        factories(thub)
 
 
 def test_manifest_is_the_ports_own():

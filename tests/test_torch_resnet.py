@@ -138,9 +138,12 @@ def test_embed_features_resnet_matches(layernorm):
 
 
 def test_unported_family_raises():
-    with pytest.raises(NotImplementedError, match="family"):
-        temb.embed_features("densenet", None, None, temb.EmbedConfig())
-    treg.register_backbone("tiny_densenet_stub", treg.BackboneSpec(
-        "densenet", None, None))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        treg.load_backbone("tiny_densenet_stub")
+    """A family in neither table (every registry family is ported: a
+    made-up one stands in) raises in the embed and in the registry."""
+    with pytest.raises(NotImplementedError, match="family 'made_up'"):
+        temb.embed_features("made_up", None, None, temb.EmbedConfig())
+    treg.register_backbone("tiny_made_up_stub", treg.BackboneSpec(
+        "made_up", None, None))
+    with pytest.raises(NotImplementedError, match="family 'made_up' is "
+                                                  "not ported"):
+        treg.load_backbone("tiny_made_up_stub")

@@ -1,5 +1,5 @@
 """Checkpoint conversion and validation CLI (port of ``tpu_ac.cli.convert``
-for the registry's ViT names).
+for every registry name).
 
 Takes a released torch ``.pth`` (a DINO hub file, or a full DINO training
 checkpoint with ``--checkpoint_key teacher``), converts it to a params

@@ -5,7 +5,7 @@ Loads the (alpha, X) pickles of stage 1, runs agglomerative clustering and
 Hungarian relabeling per category, and writes the tau-sweep CSV with the
 category-size-weighted MVTec(object)/MVTec(texture) rows.  Host-only work:
 no device is used.  ``--visualize`` (alpha heat maps, ``tpu_ac.viz``) is
-not ported yet (ROADMAP Queue 1 item 13).
+accepted and raises: the viz port is ROADMAP Queue 1 item 13.
 """
 
 from __future__ import annotations
@@ -44,6 +44,10 @@ def evaluate_category(pickle_path: str, anomaly_labels: list[str]
 
 
 def run_sweep(args) -> None:
+    if args.visualize:
+        raise NotImplementedError(
+            "--visualize needs the viz port, which is not done yet "
+            "(ROADMAP.md Queue 1 item 13)")
     for supervised in args.supervised_modes:
         out_path = os.path.join(args.output_dir, args.dataset,
                                 args.backbone_names[0], supervised)
@@ -125,6 +129,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--categories", nargs="+", default=None)
     p.add_argument("--gbk", action="store_true",
                    help="Write the CSV GBK-encoded like the reference.")
+    p.add_argument("--visualize", action="store_true",
+                   help="Per-anomaly-type alpha heat maps (not ported: "
+                        "raises).")
     return p
 
 

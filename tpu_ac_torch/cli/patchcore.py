@@ -13,8 +13,10 @@ the pixel AUROC of the anomalous images alone and, with
 ``--compute_pro``, the PRO.  Memory banks, IVF indexes and
 ``patchcore_params.json`` are ``tpu_ac``'s files: either package loads the
 other's.  Images upload as uint8 and normalize on the device.  The trunk
-runs as ``tpu_ac`` runs it: a ResNet at the default precision (TF32
-allowed on the card) with its tail at full f32, a ViT at full f32.
+runs as ``tpu_ac`` runs it: a ViT at full f32; any other family at its
+``tpu_ac`` forward's own default (TF32 allowed on the card for a ResNet,
+VGG, DenseNet, EfficientNet or ResNetV2, full f32 for the trunks whose
+``trunk_precision`` is "highest"), with its tail at full f32.
 ``--save_segmentation_images`` needs the viz port (ROADMAP.md Queue 1
 item 13) and raises.
 """
@@ -123,9 +125,10 @@ def _make_sampler(name: str, percentage: float, seed: int,
 def make_embed_fn(model, family: str, ecfg: EmbedConfig):
     """[B, 3, H, W] uint8 (or normalized float) batch on the model's device
     -> [B, P, D] f32 patch features."""
-    # tpu_ac runs a ResNet trunk at XLA's default precision and a ViT at
-    # HIGHEST; the ResNet tail turns TF32 off itself
-    scope = "default" if family == "resnet" else "highest"
+    # tpu_ac runs a ViT at HIGHEST and every other trunk at its forward's
+    # own default; those set ``trunk_precision`` where it is HIGHEST and
+    # turn TF32 off for their tail themselves
+    scope = "highest" if family == "vit" else "default"
 
     def embed(images: torch.Tensor) -> torch.Tensor:
         if images.dtype == torch.uint8:

@@ -111,17 +111,23 @@ class Item:
 
 
 class MVTecDataset:
-    """Walks ``<source>/<class>/<split>/<anomaly>/*.png``."""
+    """Walks ``<source>/<class>/<split>/<anomaly>/*.png``.
+
+    ``train_val_split`` < 1 keeps the first ``int(n * train_val_split)``
+    files of each anomaly folder for TRAIN and the rest for VAL; as in
+    the reference, each split walks its own folder (``val/`` for VAL)."""
 
     def __init__(self, source: str, classname: str | None = None,
                  resize: int = 256, imagesize: int = 224,
-                 split: DatasetSplit = DatasetSplit.TRAIN):
+                 split: DatasetSplit = DatasetSplit.TRAIN,
+                 train_val_split: float = 1.0):
         self.source = source
         self.split = split
         self.resize = resize
         self.imagesize = imagesize
         self.classnames_to_use = ([classname] if classname is not None
                                   else CLASSNAMES)
+        self.train_val_split = train_val_split
         self.items = self._walk()
 
     def _walk(self) -> list[Item]:
@@ -133,6 +139,12 @@ class MVTecDataset:
                 apath = os.path.join(classpath, anomaly)
                 paths = [os.path.join(apath, f)
                          for f in sorted(os.listdir(apath))]
+                if self.train_val_split < 1.0:
+                    cut = int(len(paths) * self.train_val_split)
+                    if self.split == DatasetSplit.TRAIN:
+                        paths = paths[:cut]
+                    elif self.split == DatasetSplit.VAL:
+                        paths = paths[cut:]
                 masks = None
                 if self.split == DatasetSplit.TEST and anomaly != "good":
                     mpath = os.path.join(maskroot, anomaly)

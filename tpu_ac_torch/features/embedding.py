@@ -1,23 +1,26 @@
-"""Patch-embedding pipeline for the ViT and ResNet families (port of
+"""Patch-embedding pipeline for every backbone family (port of
 ``tpu_ac.features.embedding``).
 
 Per tapped layer: ViT tokens drop the CLS token and reshape to the
-[D, G, G] grid, ResNet maps are used as they come; ad-hoc LayerNorm over
-(C, H, W) unless ``apply_layernorm`` is off (PatchCore), then patchify
-(3x3, zero padded) + MeanMapper (adaptive pool of the flattened window to
+[D, G, G] grid, XCiT tokens (no CLS) reshape straight onto it, conv and
+Swin maps are used as they come; ad-hoc LayerNorm over (C, H, W) unless
+``apply_layernorm`` is off (PatchCore), then patchify (3x3, zero padded) +
+MeanMapper (adaptive pool of the flattened window to
 ``pretrain_embed_dimension``); bilinear-align coarser grids onto the
 first; Aggregator (adaptive pool of the stacked layers to
 ``target_embed_dimension``).  With ``patchstride == 1`` patchify+MeanMapper
 is one k x k ``F.conv2d`` whose weight is the banded pooling matrix.  The
 conv and pool matmuls are plain torch ops, as ``tpu_ac`` leaves them to
 XLA; their precision follows the enclosing ``device.precision_scope``,
-except in the ResNet family's tail, which turns TF32 off as ``tpu_ac`` runs
-it at ``HIGHEST`` behind a trunk at XLA's default precision.
-``embed_features`` dispatches on ``FAMILY_EMBEDDERS``.
+except that every family but the ViT runs its tail with TF32 off, as
+``tpu_ac`` runs it at ``HIGHEST`` behind the trunk; a trunk whose
+``tpu_ac`` forward defaults to ``HIGHEST`` (``trunk_precision``) runs with
+TF32 off too.  ``embed_features`` dispatches on ``FAMILY_EMBEDDERS``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Sequence
@@ -26,7 +29,6 @@ import torch
 import torch.nn.functional as F
 
 from tpu_ac_torch.device import precision_scope
-from tpu_ac_torch.models.resnet import ResNet
 from tpu_ac_torch.models.vit import ViT
 from tpu_ac_torch.ops.interpolate import interpolate_bilinear
 from tpu_ac_torch.ops.normalize import adhoc_layernorm
@@ -137,21 +139,63 @@ def embed_vit_features(model: ViT, images: torch.Tensor,
     return embed_feature_maps([outs[t][:, skip:] for t in taps], cfg)
 
 
-def embed_resnet_features(model: ResNet, images: torch.Tensor,
-                          cfg: EmbedConfig) -> torch.Tensor:
-    """[B, 3, H, W] normalized images -> [B, P, target_embed_dimension];
-    ``cfg.layers`` are stage names ("layer2", "layer3").  The trunk runs
-    under the caller's precision scope, the tail with TF32 off."""
-    outs = model(images, taps=cfg.layers)
+def _trunk_scope(model):
+    """TF32 off for a trunk that ``tpu_ac`` runs at HIGHEST whatever the
+    pipeline's precision; else the caller's scope."""
+    if getattr(model, "trunk_precision", None) == "highest":
+        return precision_scope("highest")
+    return contextlib.nullcontext()
+
+
+def embed_trunk_features(model, images: torch.Tensor,
+                         cfg: EmbedConfig) -> torch.Tensor:
+    """[B, 3, H, W] normalized images -> [B, P, target_embed_dimension] for
+    a family whose forward returns {layer name: [B, C, H, W]}; ``cfg.layers``
+    are those names ("layer2", "denseblock3", "features.9", "layers.1",
+    ...).  The tail runs with TF32 off."""
+    with _trunk_scope(model):
+        outs = model(images, taps=cfg.layers)
     with precision_scope("highest"):
         return embed_feature_maps([outs[name] for name in cfg.layers], cfg)
 
 
+def embed_xcit_features(model, images: torch.Tensor,
+                        cfg: EmbedConfig) -> torch.Tensor:
+    """XCiT: ``cfg.layers`` are block indices ("blocks.i"); the tokens carry
+    no CLS, so [B, N, D] reshapes straight onto the [D, G, G] grid."""
+    taps = cfg.tap_indices
+    with _trunk_scope(model):
+        outs = model(images, taps=taps)
+    maps = []
+    for t in taps:
+        b, n, d = outs[t].shape
+        g = int(round(n ** 0.5))
+        maps.append(outs[t].reshape(b, g, g, d).permute(0, 3, 1, 2))
+    with precision_scope("highest"):
+        return embed_feature_maps(maps, cfg)
+
+
+def embed_hybrid_vit_features(model, images: torch.Tensor,
+                              cfg: EmbedConfig) -> torch.Tensor:
+    """R50+ViT: ``cfg.layers`` are block indices; the tokens carry a CLS
+    token, which the shared path drops, as for a ViT."""
+    taps = cfg.tap_indices
+    with _trunk_scope(model):
+        outs = model(images, taps=taps)
+    with precision_scope("highest"):
+        return embed_feature_maps([outs[t] for t in taps], cfg)
+
+
 # family -> embed fn (model, images, cfg, **family kwargs); a family not
-# here is not ported (ROADMAP.md Queue 1 item 9)
+# here raises in embed_features
 FAMILY_EMBEDDERS = {
     "vit": embed_vit_features,
-    "resnet": embed_resnet_features,
+    "xcit": embed_xcit_features,
+    "vit_hybrid": embed_hybrid_vit_features,
+    **{family: embed_trunk_features for family in (
+        "resnet", "vgg", "alexnet", "densenet", "efficientnet",
+        "efficientnetv2", "mnasnet", "resnetv2", "swin", "inception_v4",
+        "bninception", "resnest")},
 }
 
 

@@ -1,11 +1,10 @@
-"""Model-hub style factories for the DINO ViTs and ResNet-50 and for
-torchvision's WRN50-2 (port of ``tpu_ac.hub``, dino-main/hubconf.py:22-92).
+"""Model-hub style factories for DINO's ViTs, ResNet-50 and XCiTs and for
+torchvision's WRN50-2 (port of ``tpu_ac.hub``, dino-main/hubconf.py:22-151).
 
 Each factory returns (module, config, family) with the released weights
 when a converted checkpoint is in the checkpoint cache (nothing is
 downloaded; see ``tpu_ac_torch.models.registry`` for the search path),
-else the seeded random init.  The XCiT factories wait for their family
-(ROADMAP.md Queue 1 item 9).
+else the seeded random init.
 """
 
 from __future__ import annotations
@@ -37,6 +36,26 @@ def dino_vitb8(**kw):
 def dino_resnet50(**kw):
     """ResNet-50 DINO backbone (hubconf.py:78-92)."""
     return load_backbone("dino_resnet50", **kw)
+
+
+def dino_xcit_small_12_p16(**kw):
+    """XCiT-S12/16 DINO backbone (hubconf.py:98-109)."""
+    return load_backbone("dino_xcit_small_12_p16", **kw)
+
+
+def dino_xcit_small_12_p8(**kw):
+    """XCiT-S12/8 DINO backbone (hubconf.py:112-123)."""
+    return load_backbone("dino_xcit_small_12_p8", **kw)
+
+
+def dino_xcit_medium_24_p16(**kw):
+    """XCiT-M24/16 DINO backbone (hubconf.py:126-137)."""
+    return load_backbone("dino_xcit_medium_24_p16", **kw)
+
+
+def dino_xcit_medium_24_p8(**kw):
+    """XCiT-M24/8 DINO backbone (hubconf.py:140-151)."""
+    return load_backbone("dino_xcit_medium_24_p8", **kw)
 
 
 def wide_resnet50_2(**kw):

@@ -1,22 +1,22 @@
 """Torch checkpoints and ``tpu_ac`` params dicts into ``tpu_ac_torch``
-modules (port of ``tpu_ac.models.convert``, the ViT and ResNet families'
-part).
+modules (port of ``tpu_ac.models.convert``).
 
-Param keys mirror the torch state_dict names of the released DINO and
-torchvision checkpoints, and a params dict is numpy arrays under those
+Param keys mirror the torch state_dict names of the released DINO, timm
+and torchvision checkpoints, and a params dict is numpy arrays under those
 keys, so one set of weights feeds both packages.
 ``load_torch_checkpoint`` reads a ``.pth`` the way ``tpu_ac`` does (sub-dict
-key, ``state_dict`` wrapper, ``module.`` / ``backbone.`` prefixes, BN
-counters dropped) into such a dict;
-``load_jax_params`` is the checked copy of a params dict into a module.
-``tpu_ac``'s DenseNet key remap and MoCo renaming are not carried: those
-families are not ported (ROADMAP Queue 1 item 9).
+key, ``state_dict`` wrapper, torchvision's legacy DenseNet keys remapped,
+``module.`` / ``backbone.`` prefixes, BN counters dropped) into such a
+dict; ``load_jax_params`` is the checked copy of a params dict into a
+module.  ``tpu_ac``'s MoCo renaming is not carried: it serves the
+contrastive trainer, which is not ported.
 """
 
 from __future__ import annotations
 
 import logging
 import pickle
+import re
 from typing import Any, Mapping
 
 import numpy as np
@@ -81,7 +81,25 @@ def load_torch_checkpoint(path: str, checkpoint_key: str | None = None
         ckpt = ckpt[checkpoint_key]
     if "state_dict" in ckpt:
         ckpt = ckpt["state_dict"]
+    if any(".denselayer" in k for k in ckpt):
+        ckpt = remap_densenet_keys(ckpt)
     return torch_state_dict_to_params(ckpt)
+
+
+def remap_densenet_keys(state_dict: Mapping[str, Any]) -> dict[str, Any]:
+    """torchvision's DenseNet files spell the dense layers' norms and convs
+    the legacy way (``denselayer1.norm.1.weight``); rename them as
+    torchvision's own loader does (``denselayer1.norm1.weight``)."""
+    pattern = re.compile(
+        r"^(.*denselayer\d+\.(?:norm|relu|conv))\.((?:[12])\.(?:weight|bias|"
+        r"running_mean|running_var))$")
+    out = {}
+    for k, v in state_dict.items():
+        m = pattern.match(k)
+        if m:
+            k = m.group(1) + m.group(2)
+        out[k] = v
+    return out
 
 
 def validate_params_against_backbone(params: Mapping[str, Any],
@@ -89,14 +107,15 @@ def validate_params_against_backbone(params: Mapping[str, Any],
     """Key-coverage report of converted params against a registry
     backbone's structure: {"missing", "unexpected", "shape_mismatch"}, each
     a list of keys."""
-    from tpu_ac_torch.models.manifest import diff_inventory, params_inventory
-    from tpu_ac_torch.models.registry import load_backbone
+    from tpu_ac_torch.models.manifest import (
+        diff_inventory,
+        generate_manifest,
+        params_inventory,
+    )
 
-    # use_checkpoint=False: the structure comes from the architecture's own
-    # init, not from a cached checkpoint (which would compare the
-    # checkpoint with itself)
-    expected, _cfg, _family = load_backbone(name, use_checkpoint=False)
-    report = diff_inventory(params_inventory(expected.state_dict()),
+    # the structure comes from the architecture, never from a cached
+    # checkpoint (which would compare the checkpoint with itself)
+    report = diff_inventory(generate_manifest(name),
                             params_inventory(params))
     report["shape_mismatch"] = [k for k, *_ in report["shape_mismatch"]]
     return report

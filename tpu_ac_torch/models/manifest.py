@@ -1,10 +1,13 @@
 """Frozen per-backbone checkpoint manifests: key -> shape inventories (port
-of ``tpu_ac.models.manifest`` for the registry's ViT names).
+of ``tpu_ac.models.manifest``).
 
 ``manifests.json`` beside this module holds, for every built-in registry
 name, the exact state_dict keys and shapes the architecture expects (150
-keys for ``dino_vitbase8``); its entries equal ``tpu_ac``'s for the same
-names.  It makes two failures visible without any weights:
+keys for ``dino_vitbase8``); its entries equal ``tpu_ac``'s.  An
+architecture's inventory is read from its module built on the meta device
+(``registry.build_on_meta``): no storage and no random init, so the
+0.9 G-parameter ``resnetv2_152_*`` names cost no more than a small one.
+It makes two failures visible without any weights:
 
 1. architecture drift: a change to a model's parameter inventory breaks
    ``tests/test_torch_checkpoints.py``;
@@ -34,11 +37,10 @@ def params_inventory(params: Mapping[str, object]) -> dict[str, list[int]]:
 
 
 def generate_manifest(name: str) -> dict[str, list[int]]:
-    """Inventory of one registry name from its random-init architecture."""
-    from tpu_ac_torch.models.registry import load_backbone
+    """Inventory of one registry name's architecture (built on meta)."""
+    from tpu_ac_torch.models.registry import build_on_meta
 
-    model, _, _ = load_backbone(name, use_checkpoint=False)
-    return params_inventory(model.state_dict())
+    return params_inventory(build_on_meta(name).state_dict())
 
 
 def generate_all(names=None) -> dict[str, dict[str, list[int]]]:

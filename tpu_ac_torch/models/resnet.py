@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpu_ac_torch.ops.linear import bn_inference_nchw
+from tpu_ac_torch.models.layers import FrozenBN as _FrozenBN
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,23 +116,6 @@ def init_resnet_params(seed: int, cfg: ResNetConfig) -> dict[str, np.ndarray]:
                       ).astype(np.float32)
     p["fc.bias"] = np.zeros((cfg.num_classes,), np.float32)
     return p
-
-
-class _FrozenBN(nn.Module):
-    """Inference BatchNorm2d: weight, bias and running stats as buffers, no
-    ``num_batches_tracked``."""
-
-    def __init__(self, channels: int, eps: float):
-        super().__init__()
-        self.eps = eps
-        for name, fill in (("weight", 1.0), ("bias", 0.0),
-                           ("running_mean", 0.0), ("running_var", 1.0)):
-            self.register_buffer(name, torch.full((channels,), fill))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return bn_inference_nchw(x, self.weight, self.bias,
-                                 self.running_mean, self.running_var,
-                                 self.eps)
 
 
 def _conv(in_c: int, out_c: int, k: int, stride: int = 1,

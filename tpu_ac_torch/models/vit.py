@@ -227,6 +227,26 @@ class _Block(nn.Module):
         return x + self.mlp(self.norm2(x))
 
 
+def interpolate_pos_encoding(pos_embed: torch.Tensor, npatch: int, h: int,
+                             w: int, cfg: ViTConfig) -> torch.Tensor:
+    """Bicubic pos-embed resize for non-pretraining image sizes, incl. the
+    +0.1 scale fudge.  The token grid is row-major (H rows of W), so the
+    leading (row) scale comes from the image HEIGHT."""
+    n_prefix = cfg.num_prefix_tokens
+    n = pos_embed.shape[1] - n_prefix
+    if npatch == n and w == h:
+        return pos_embed
+    dim = pos_embed.shape[-1]
+    h0 = h // cfg.patch_size + 0.1
+    w0 = w // cfg.patch_size + 0.1
+    side = int(math.sqrt(n))
+    grid = pos_embed[:, n_prefix:].reshape(1, side, side, dim)
+    grid = interpolate_bicubic(grid.permute(0, 3, 1, 2),
+                               scale_factor=(h0 / side, w0 / side))
+    grid = grid.permute(0, 2, 3, 1).reshape(1, -1, dim)
+    return torch.cat([pos_embed[:, :n_prefix], grid], dim=1)
+
+
 class ViT(nn.Module):
     """DINO ViT trunk; ``forward(images, taps)`` -> {tap: [B, N+prefix, D]}.
 
@@ -252,24 +272,8 @@ class ViT(nn.Module):
 
     def interpolate_pos_encoding(self, npatch: int, h: int,
                                  w: int) -> torch.Tensor:
-        """Bicubic pos-embed resize for non-pretraining image sizes, incl.
-        the +0.1 scale fudge.  The token grid is row-major (H rows of W),
-        so the leading (row) scale comes from the image HEIGHT."""
-        cfg = self.cfg
-        pos_embed = self.pos_embed
-        n_prefix = cfg.num_prefix_tokens
-        n = pos_embed.shape[1] - n_prefix
-        if npatch == n and w == h:
-            return pos_embed
-        dim = pos_embed.shape[-1]
-        h0 = h // cfg.patch_size + 0.1
-        w0 = w // cfg.patch_size + 0.1
-        side = int(math.sqrt(n))
-        grid = pos_embed[:, n_prefix:].reshape(1, side, side, dim)
-        grid = interpolate_bicubic(grid.permute(0, 3, 1, 2),
-                                   scale_factor=(h0 / side, w0 / side))
-        grid = grid.permute(0, 2, 3, 1).reshape(1, -1, dim)
-        return torch.cat([pos_embed[:, :n_prefix], grid], dim=1)
+        return interpolate_pos_encoding(self.pos_embed, npatch, h, w,
+                                        self.cfg)
 
     def prepare_tokens(self, images: torch.Tensor) -> torch.Tensor:
         b, _, h, w = images.shape

@@ -4,7 +4,7 @@
 ``bn_inference_nchw`` is folded inference BatchNorm2d on [B, C, H, W] with
 running statistics.  ``tpu_ac``'s takes a params dict and a key prefix;
 here the four tensors come from the module that holds them
-(``models.resnet._FrozenBN``).  Precision follows the enclosing
+(``models.layers.FrozenBN``).  Precision follows the enclosing
 ``tpu_ac_torch.device.precision_scope``.
 """
 

@@ -107,8 +107,10 @@ class _StagedUpload:
 class CategoryEmbedder:
     """Batched embedding of an image set on one device or over a dp mesh.
 
-    ``model`` is a ``ViT`` or a ``ResNet`` (f32, any device); it is moved to
-    ``device`` and, for ``precision="bfloat16"``, cast to bf16.  The embed
+    ``model`` is a module of any registry family (f32, any device); it is
+    moved to ``device`` and, for ``precision="bfloat16"``, cast to bf16
+    (every float tensor, BN statistics included, as ``tpu_ac`` casts its
+    params).  The embed
     dispatches on its ``family`` (``features.embedding.FAMILY_EMBEDDERS``).
     ``attention_impl`` (ViT only): "auto" is the dense attention, as in
     ``tpu_ac``; "flash" runs every block's attention through the flash
