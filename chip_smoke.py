@@ -72,7 +72,27 @@ Phases, each fatal on failure:
      it), embed ms/image, sweep img/s and the peak memory; each model
      freed before the next; then python -m tpu_ac_torch.cli.main and
      cli.evaluate on dino_xcit_medium_24_p8, each a process of its own;
-  9. timings at the main path's shapes: each kernel beside its bound, its
+  9. DINO training: a synthetic ImageFolder (2 classes, 448 PNGs at 256
+     px from a numpy seed: 7 steps of 64) through python -m
+     tpu_ac_torch.cli.dino at main_dino's recipe (ViT-S/16, out_dim
+     65536, 2 x 224 + 8 x 96 crops, batch 64, bf16, AdamW, clip 3, last
+     layer frozen in epoch 0), each run a process of its own: the timed
+     run (--device_aug --data_cache, 2 epochs x 6 steps; from epoch 1
+     the step ms by CUDA events, images/s, crops/s, the share of the
+     dense bf16 peak, peak GiB); the PIL path (--num_workers = the CPU
+     count, 1 epoch x 3 steps: step ms and the host's wait on the
+     loader); --steps_per_dispatch 2 and --remat true at 2 epochs x 2
+     steps, their epoch losses equal to the plain run's, remat's peak
+     beside the plain run's; every run's checkpoints and log.txt written,
+     its losses finite.  In this process: 3 steps under torch.profiler
+     (busy share, the ten largest device ops), and one full-width step at
+     batch 2 in f32 (TF32 off) on the card against the CPU from one state
+     and one set of crops: the loss and every gradient before the clip
+     within DINO_LOSS_GAP_BOUND and DINO_GRAD_GAP_BOUND, the card's update
+     equal to the CPU's update of the card's gradients, and the states
+     after the step apart by at most Adam's first step, 2 lr.  No
+     hand-written kernel lies on this path (asserted: no launches);
+ 10. timings at the main path's shapes: each kernel beside its bound, its
      plain version and a library yardstick (cdist; scaled_dot_product_
      attention, bf16 and f32), which the port never calls; for min_dists
      also cuBLAS (torch.matmul) on the same bf16 products without the min
@@ -1456,6 +1476,335 @@ def phase_zoo(torch, dist, attn, work: str, root: str) -> dict:
     return dict(rows=rows, cli_s=cli_s)
 
 
+DINO_BATCH = 64
+DINO_IMAGES = 7 * DINO_BATCH  # 2 classes of 224 PNGs at 256 px
+DINO_LR = 0.0005 * DINO_BATCH / 256  # the recipe's peak lr at batch 64
+# The card against the CPU, one f32 step (TF32 off) at full width, batch
+# 2: the loss's relative gap, and each parameter's gradient's ||gap|| /
+# ||gradient||.  Derivation: on the CPU the f32 gradients of ViT-S/16
+# (12 blocks, out_dim 4096, 64/32 px crops) sit at most 1.5e-6 from a
+# float64 run (the loss 7.6e-9); the card's sums go in other orders, so
+# the two f32 runs differ by about sqrt(2) of that, and the full width's
+# longer sums (65536 logits, 197 tokens: 4-16x the terms) about 4x more:
+# ~1e-5; 10x above that for cuBLAS's split-K orders.  An error of the
+# port on the card (a wrong mask, cast or order of crops) moves whole
+# gradients by O(1).
+DINO_LOSS_GAP_BOUND = 1e-5
+DINO_GRAD_GAP_BOUND = 1e-4
+
+
+def _dino_recipe():
+    """main_dino's defaults as tpu_ac.cli.dino parses them: ViT-S/16 on
+    224 px globals, DINOConfig's head and crops."""
+    import dataclasses
+
+    from tpu_ac_torch.data.device_aug import DeviceAugConfig
+    from tpu_ac_torch.models.vit import VIT_SMALL
+    from tpu_ac_torch.train.dino import DINOConfig
+
+    vit_cfg = dataclasses.replace(VIT_SMALL, patch_size=16, img_size=224)
+    cfg = DINOConfig(epochs=100, steps_per_epoch=DINO_IMAGES // DINO_BATCH)
+    return vit_cfg, cfg, DeviceAugConfig()
+
+
+def _dino_step_flops(vit_cfg, cfg, batch: int) -> float:
+    """Model FLOPs of one train step (2 a multiply-add): the student's
+    forward over every crop and its backward (2x the forward), the
+    teacher's forward over the globals.  A block costs 24 N D^2 + 4 N^2 D
+    over N tokens, the patch projection 2 N_p (3 p^2) D, the head its four
+    products.  Recomputation under --remat is not counted."""
+    d, ps = vit_cfg.embed_dim, vit_cfg.patch_size
+
+    def vit(size):
+        n_p = (size // ps) ** 2
+        n = n_p + 1
+        return (vit_cfg.depth * (24 * n * d * d + 4 * n * n * d)
+                + 2 * n_p * 3 * ps * ps * d)
+
+    h, bn = cfg.head_hidden_dim, cfg.head_bottleneck_dim
+    head = 2 * (d * h + h * h + h * bn + bn * cfg.out_dim)
+    student = (2 * (vit(cfg.global_size) + head)
+               + cfg.local_crops_number * (vit(cfg.local_size) + head))
+    teacher = 2 * (vit(cfg.global_size) + head)
+    return batch * (3 * student + teacher)
+
+
+def _make_imagefolder(work: str) -> str:
+    """2 classes of DINO_IMAGES / 2 PNGs at 256 px: seeded 16 x 16 noise,
+    bicubic-upsampled (smooth, image-like), plus fine noise."""
+    import numpy as np
+    from PIL import Image
+
+    root = os.path.join(work, "imagefolder")
+    rng = np.random.default_rng(0)
+    for c in ("a", "b"):
+        os.makedirs(os.path.join(root, c))
+        for i in range(DINO_IMAGES // 2):
+            low = Image.fromarray(rng.integers(0, 256, (16, 16, 3),
+                                               dtype=np.uint8))
+            arr = np.asarray(low.resize((256, 256), Image.BICUBIC),
+                             np.int16)
+            arr = arr + rng.integers(-12, 13, arr.shape, dtype=np.int16)
+            Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8)).save(
+                os.path.join(root, c, f"{i:03d}.png"))
+    return root
+
+
+def _dino_cli(work: str, root: str, tag: str, args: list[str],
+              timeout: int = 300) -> dict:
+    """python -m tpu_ac_torch.cli.dino as a user runs it, a process of its
+    own; its dino_epoch lines, the losses of its log.txt (finite, one a
+    epoch) and its last checkpoint checked; the output dir removed after
+    (a checkpoint holds 0.7 GB at this width)."""
+    out = os.path.join(work, "dino", tag)
+    cmd = [sys.executable, "-m", "tpu_ac_torch.cli.dino", "--data_path",
+           root, "--output_dir", out, "--saveckp_freq", "0", *args]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+                         capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if run.returncode:
+        print(run.stdout[-3000:], run.stderr[-3000:], sep="\n",
+              file=sys.stderr)
+        _fatal(f"python -m tpu_ac_torch.cli.dino ({tag}) exited "
+               f"{run.returncode}")
+    epochs = [json.loads(line.split(" ", 1)[1])
+              for line in run.stdout.splitlines()
+              if line.startswith("dino_epoch ")]
+    with open(os.path.join(out, "log.txt")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["train_loss"] for r in rows]
+    last = os.path.join(out, f"checkpoint-{len(rows) - 1:08d}")
+    with open(os.path.join(last, "meta.json")) as f:
+        meta = json.load(f)
+    if not (rows and len(epochs) == len(rows)
+            and all(math.isfinite(v) for v in losses)
+            and meta["extra"] == {"epoch": len(rows) - 1}
+            and os.path.getsize(os.path.join(last, "arrays.npz")) > 1e8):
+        _fatal(f"cli.dino ({tag}): log.txt {rows}, epochs {epochs}, "
+               f"checkpoint meta {meta}")
+    shutil.rmtree(out)
+    print(f"cli.dino {tag}: {wall:.1f} s (set-up included), losses "
+          f"{losses}, " + "; ".join(
+              f"epoch {e['epoch']}: {e['steps']} steps, "
+              f"{e['step_ms']:.2f} ms a step, loader wait "
+              f"{e['data_wait_ms']:.2f} ms, peak {e['peak_gib']:.2f} GiB"
+              for e in epochs), flush=True)
+    return dict(epochs=epochs, losses=losses, wall_s=wall)
+
+
+def _dino_card_vs_cpu(torch, base_u8) -> dict:
+    """One f32 step (TF32 off) at full width and batch 2 on the CPU and
+    on the card from one state and one set of crops (made on the CPU)."""
+    from tpu_ac_torch.data.device_aug import device_multicrop
+    from tpu_ac_torch.train.dino import (
+        build_dino_model,
+        dino_loss_and_grads,
+        dino_state_from_numpy,
+        dino_state_to_numpy,
+        dino_update,
+        init_dino_state,
+    )
+    from tpu_ac_torch.utils.checkpoint import tree_flatten
+
+    vit_cfg, cfg, aug_cfg = _dino_recipe()
+    model = build_dino_model(vit_cfg, cfg)
+    cpu = init_dino_state(0, vit_cfg, cfg, device="cpu")
+    card = dino_state_from_numpy(dino_state_to_numpy(cpu), device="cuda")
+    g, l = device_multicrop(base_u8[:2], torch.Generator().manual_seed(0),
+                            aug_cfg)
+    temp = torch.tensor(cfg.teacher_temp)
+    t0 = time.perf_counter()
+    loss_c, t_c, grads_c = dino_loss_and_grads(model, cpu, g, l, temp, cfg)
+    cpu_s = time.perf_counter() - t0
+    loss_g, t_g, grads_g = dino_loss_and_grads(
+        model, card, g.cuda(), l.cuda(), temp.cuda(), cfg)
+    loss_gap = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    gaps = {k: float(torch.linalg.vector_norm(grads_g[k].cpu() - v)
+                     / torch.linalg.vector_norm(v))
+            for k, v in grads_c.items()}
+    worst = max(gaps, key=gaps.get)
+    if not (loss_gap <= DINO_LOSS_GAP_BOUND
+            and gaps[worst] <= DINO_GRAD_GAP_BOUND):
+        _fatal(f"dino card vs CPU: loss gap {loss_gap:.3e} (bound "
+               f"{DINO_LOSS_GAP_BOUND}), gradient gap {gaps[worst]:.3e} at "
+               f"{worst} (bound {DINO_GRAD_GAP_BOUND})")
+
+    def update(state, grads, t_out, dev):
+        def f(v):
+            return torch.tensor(v, device=dev)
+
+        return dino_update(state, grads, t_out, f(DINO_LR), f(0.04),
+                           f(0.996), torch.tensor(False, device=dev), cfg)
+
+    new_c = update(cpu, grads_c, t_c, "cpu")
+    new_g = update(card, grads_g, t_g, "cuda")
+    # the CPU's update of the card's gradients: the card's update alone
+    new_x = update(cpu, {k: v.cpu() for k, v in grads_g.items()}, t_g.cpu(),
+                   "cpu")
+    upd_gap = step_gap = 0.0
+    for a, x, c in zip(tree_flatten(new_g), tree_flatten(new_x),
+                       tree_flatten(new_c)):
+        a = a.cpu().double()
+        upd_gap = max(upd_gap, float(((a - x.double()).abs()
+                                      / (x.double().abs() + DINO_LR)).max()))
+        step_gap = max(step_gap, float((a - c.double()).abs().max()))
+    # Adam's first step moves an element by lr * (|g| / (|g| + eps) + wd
+    # |p|), about lr * sign(g): elements whose gradient is near zero may
+    # step either way on the two devices, so the states stay 2 lr apart
+    # at most (|p| < 1 here)
+    if upd_gap > 1e-5 or step_gap > 2 * DINO_LR * (1 + 0.04):
+        _fatal(f"dino card vs CPU after the step: the card's update "
+               f"{upd_gap:.3e} from the CPU's update of the same gradients "
+               f"(bound 1e-5 of |value| + lr); states {step_gap:.3e} apart "
+               f"(bound 2 lr = {2 * DINO_LR:.3e})")
+    print(f"dino card vs CPU (f32, TF32 off, batch 2, full width): loss "
+          f"{float(loss_g):.6f} vs {float(loss_c):.6f} (gap {loss_gap:.3e}, "
+          f"bound {DINO_LOSS_GAP_BOUND}), worst gradient gap "
+          f"{gaps[worst]:.3e} at {worst}, median "
+          f"{sorted(gaps.values())[len(gaps) // 2]:.3e} (bound "
+          f"{DINO_GRAD_GAP_BOUND}); update vs the CPU's update of the "
+          f"card's gradients {upd_gap:.3e}; states after the step "
+          f"{step_gap / DINO_LR:.3f} lr apart at most; CPU step "
+          f"{cpu_s:.1f} s", flush=True)
+    return dict(loss_gap=loss_gap, grad_gap=gaps[worst], upd_gap=upd_gap,
+                step_gap_lr=step_gap / DINO_LR)
+
+
+def _dino_profile(torch, base_u8) -> dict:
+    """The train step in this process (device aug, bf16, batch 64): 2
+    warm-up steps, 3 timed, 3 under torch.profiler; the aug alone."""
+    from tpu_ac_torch.data.device_aug import device_multicrop
+    from tpu_ac_torch.train.dino import (
+        init_dino_state,
+        make_dino_train_step,
+        make_schedules,
+        make_step_schedule_tables,
+    )
+
+    vit_cfg, cfg, aug_cfg = _dino_recipe()
+    state = init_dino_state(0, vit_cfg, cfg, device="cuda")
+    tables = make_step_schedule_tables(cfg, make_schedules(cfg, DINO_BATCH),
+                                       "cuda")
+    step = make_dino_train_step(vit_cfg, cfg, compute_dtype=torch.bfloat16,
+                                resident_schedules=True)
+    raw = base_u8[:DINO_BATCH].cuda()
+    gen = torch.Generator(device="cuda")
+
+    def steps(n):
+        nonlocal state
+        for i in range(n):
+            gen.manual_seed(i)
+            g, l = device_multicrop(raw, gen, aug_cfg)
+            state, m = step(state, g, l, tables)
+        torch.cuda.synchronize()
+        if not math.isfinite(float(m["loss"])):
+            _fatal(f"dino profile: loss {float(m['loss'])}")
+
+    steps(2)
+    t0 = time.perf_counter()
+    steps(3)
+    wall_s = time.perf_counter() - t0
+    # one step from an idle card: the host's time to queue it against the
+    # time until the card has run it (equal where the host sets the pace)
+    t0 = time.perf_counter()
+    gen.manual_seed(0)
+    state, _ = step(state, *device_multicrop(raw, gen, aug_cfg), tables)
+    queue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    busy = _profile_busy(torch, lambda: steps(3), wall_s,
+                         "3 DINO steps (ViT-S/16, batch 64, bf16, device "
+                         "aug)")
+    # one call: its ~900 launches fit in the card's queue behind the sleep
+    aug_ms, aug_host_ms = _time_ms(
+        lambda: device_multicrop(raw, gen, aug_cfg), 1)
+    print(f"dino in-process: {wall_s * 1e3 / 3:.2f} ms a step (host clock, "
+          f"synchronised); one step from an idle card queued in "
+          f"{queue_ms:.2f} ms on the host, done after {one_ms:.2f} ms; "
+          f"device aug alone {aug_ms:.2f} ms on the card, "
+          f"{aug_host_ms:.2f} ms to queue on the host", flush=True)
+    del state
+    return dict(inproc_step_ms=wall_s * 1e3 / 3, busy_pct=busy,
+                queue_ms=queue_ms, one_step_ms=one_ms, aug_ms=aug_ms,
+                aug_host_ms=aug_host_ms)
+
+
+def phase_dino(torch, work: str) -> dict:
+    """DINO pre-training at main_dino's recipe through cli.dino (see the
+    module docstring, phase 9)."""
+    import numpy as np
+
+    from tpu_ac_torch.data.device_aug import build_base_cache
+    from tpu_ac_torch.data.imagefolder import ImageFolder
+
+    t_start = time.perf_counter()
+    vit_cfg, cfg, _ = _dino_recipe()
+    flops = _dino_step_flops(vit_cfg, cfg, DINO_BATCH)
+    root = _make_imagefolder(work)
+    cache = os.path.join(work, "dino_cache")
+    base = torch.from_numpy(np.array(build_base_cache(
+        ImageFolder(root), 256, cache)[:DINO_BATCH]))
+    dev_aug = ["--device_aug", "--data_cache", cache]
+
+    timed = _dino_cli(work, root, "timed",
+                      dev_aug + ["--epochs", "2", "--max_steps_per_epoch",
+                                 "6"])
+    e1 = timed["epochs"][1]
+    step_s = e1["step_ms"] / 1e3
+    crops = DINO_BATCH * cfg.ncrops
+    print(f"dino timed (epoch 1, {e1['steps']} steps, {e1['device']}): "
+          f"{e1['step_ms']:.2f} ms a step, {DINO_BATCH / step_s:.1f} "
+          f"images/s, {crops / step_s:.1f} crops/s, "
+          f"{flops / 1e12:.3f} TFLOP a step = "
+          f"{100 * flops / step_s / PEAK_BF16_FLOPS:.2f}% of the dense bf16 "
+          f"peak, peak {e1['peak_gib']:.2f} GiB", flush=True)
+
+    n_cpu = os.cpu_count()
+    pil = _dino_cli(work, root, "pil", ["--num_workers", str(n_cpu),
+                                        "--epochs", "1",
+                                        "--max_steps_per_epoch", "3"])
+    p0 = pil["epochs"][0]
+    print(f"dino PIL path ({n_cpu} CPUs, {n_cpu} workers): "
+          f"{p0['step_ms']:.2f} ms a step, the step waits "
+          f"{p0['data_wait_ms']:.2f} ms a step on the loader", flush=True)
+
+    flag_args = dev_aug + ["--epochs", "2", "--max_steps_per_epoch", "2"]
+    plain = _dino_cli(work, root, "plain", flag_args)
+    flags = {}
+    for tag, extra in (("k2", ["--steps_per_dispatch", "2"]),
+                       ("remat", ["--remat", "true"])):
+        run = _dino_cli(work, root, tag, flag_args + extra)
+        if run["losses"] != plain["losses"]:
+            _fatal(f"cli.dino {' '.join(extra)}: epoch losses "
+                   f"{run['losses']}, the plain run's {plain['losses']}: "
+                   "the same kernels on the same crops must give the same "
+                   "bits")
+        flags[tag] = run
+    print(f"dino flags: --steps_per_dispatch 2 and --remat true epoch "
+          f"losses bit-equal to the plain run's {plain['losses']}; peak "
+          f"{flags['remat']['epochs'][1]['peak_gib']:.2f} GiB with --remat "
+          f"against {plain['epochs'][1]['peak_gib']:.2f} GiB without; step "
+          f"{flags['remat']['epochs'][1]['step_ms']:.2f} against "
+          f"{plain['epochs'][1]['step_ms']:.2f} ms", flush=True)
+
+    prof = _dino_profile(torch, base)
+    gaps = _dino_card_vs_cpu(torch, base)
+    phase_s = time.perf_counter() - t_start
+    print(f"dino phase: {phase_s:.1f} s", flush=True)
+    return dict(step_ms=e1["step_ms"], img_s=DINO_BATCH / step_s,
+                crops_s=crops / step_s, tflop=flops / 1e12,
+                peak_pct=100 * flops / step_s / PEAK_BF16_FLOPS,
+                peak_gib=e1["peak_gib"], cli_s=timed["wall_s"],
+                pil_step_ms=p0["step_ms"], pil_wait_ms=p0["data_wait_ms"],
+                cpus=n_cpu,
+                remat_peak_gib=flags["remat"]["epochs"][1]["peak_gib"],
+                plain_peak_gib=plain["epochs"][1]["peak_gib"],
+                remat_step_ms=flags["remat"]["epochs"][1]["step_ms"],
+                plain_step_ms=plain["epochs"][1]["step_ms"],
+                phase_s=phase_s, **prof, **gaps)
+
+
 def _print_ptxas(name: str, log: str) -> None:
     """One line per kernel instance of nvcc's ptxas report: registers,
     shared memory, spills; and ptxas's performance warnings."""
@@ -1537,6 +1886,12 @@ def main() -> None:
         t0 = time.perf_counter()
         zoo_run = phase_zoo(torch, dist, attn, work, root)
         zoo_s = time.perf_counter() - t0
+        dist.LAUNCHES = dist.WINDOW_LAUNCHES = attn.LAUNCHES = 0
+        dino_run = phase_dino(torch, work)
+        dino_launches = dist.LAUNCHES + dist.WINDOW_LAUNCHES + attn.LAUNCHES
+        if dino_launches:
+            _fatal(f"the dino path launched {dino_launches} kernels of the "
+                   "clustering path")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # the supervised run pads its 84 queries to the 32-image bucket (96)
@@ -1624,6 +1979,8 @@ def main() -> None:
                           "launches": r["launches"],
                           "peak_gib": r4(r["peak_gib"])}
                    for name, r in zoo_run["rows"].items()}},
+        "dino": {k: (float(f"{v:.6g}") if isinstance(v, float) else v)
+                 for k, v in dino_run.items()},
         "mesh": {"sweep_img_s": r4(mesh_run["sweep_img_s"]),
                  "window_ms": r4(window_timing["ms"]),
                  "w_gap_over_bound": float(

@@ -51,7 +51,12 @@ def test_scan_sees_the_package():
                 "models/layers.py", "models/vgg.py", "models/densenet.py",
                 "models/inception.py", "models/resnest.py",
                 "models/resnetv2.py", "models/efficientnet.py",
-                "models/vit_hybrid.py", "models/swin.py", "models/xcit.py"):
+                "models/vit_hybrid.py", "models/swin.py", "models/xcit.py",
+                "utils/__init__.py", "utils/seeding.py", "utils/logging.py",
+                "utils/profiling.py", "utils/checkpoint.py",
+                "models/dino_head.py", "train/__init__.py", "train/dino.py",
+                "train/optim.py", "data/imagefolder.py", "data/augment.py",
+                "data/prefetch.py", "data/device_aug.py", "cli/dino.py"):
         assert f"tpu_ac_torch/{mod}" in names
 
 

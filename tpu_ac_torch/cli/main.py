@@ -8,9 +8,7 @@
 from __future__ import annotations
 
 import argparse
-import contextlib
 import logging
-import os
 import time
 
 from tpu_ac_torch.data.mvtec import CLASSNAMES
@@ -19,6 +17,7 @@ from tpu_ac_torch.pipeline import (
     build_embedder_for_config,
     run_category_sweep,
 )
+from tpu_ac_torch.utils.profiling import maybe_profile
 
 LOGGER = logging.getLogger("tpu_ac_torch.cli.main")
 
@@ -60,22 +59,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a card raises.")
     return p
-
-
-@contextlib.contextmanager
-def maybe_profile(trace_dir: str | None):
-    if not trace_dir:
-        yield
-        return
-    import torch
-
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield
-    os.makedirs(trace_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
 
 
 def main(argv=None) -> None:

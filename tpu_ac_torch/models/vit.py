@@ -17,19 +17,23 @@ stream stays at its true length (785 at ViT-B/8, 224 px): the kernel masks
 the ragged tail itself, so ``tpu_ac``'s ``seq_pad`` is not needed, and the
 padded JAX forward equals the unpadded one on the real tokens
 (``tests/test_seq_pad_packed.py``).  The other TPU/XLA-only levers of
-``tpu_ac`` (``scan_blocks``, ``QKV_SPLIT``, ``ATTENTION_PAD_RAGGED``,
-``remat``) are not carried: they change compilation, not results.
+``tpu_ac`` (``scan_blocks``, ``QKV_SPLIT``, ``ATTENTION_PAD_RAGGED``)
+are not carried: they change compilation, not results.  ``forward_cls``
+(the DINO training forward) takes ``tpu_ac``'s ``remat``: activation
+checkpointing of each block, which trades recompute for memory.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as ckpt
 from torch import nn
 
 from tpu_ac_torch.kernels.attention import flash_attention_impl
@@ -227,6 +231,28 @@ class _Block(nn.Module):
         return x + self.mlp(self.norm2(x))
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the outputs
+    of the products without batch dims (the linears' mm/addmm), recompute
+    the rest (LayerNorm, GELU, softmax and the batched attention
+    products), as ``jax.checkpoint_policies.
+    dots_with_no_batch_dims_saveable`` does for ``tpu_ac``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _run_block(blk: nn.Module, x: torch.Tensor,
+               remat: bool | str) -> torch.Tensor:
+    if not remat:
+        return blk(x)
+    if remat == "dots":
+        return ckpt.checkpoint(
+            blk, x, use_reentrant=False, context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots))
+    return ckpt.checkpoint(blk, x, use_reentrant=False)
+
+
 def interpolate_pos_encoding(pos_embed: torch.Tensor, npatch: int, h: int,
                              w: int, cfg: ViTConfig) -> torch.Tensor:
     """Bicubic pos-embed resize for non-pretraining image sizes, incl. the
@@ -302,3 +328,16 @@ class ViT(nn.Module):
             if i in taps:
                 out[i] = x
         return out
+
+    def forward_cls(self, images: torch.Tensor,
+                    remat: bool | str = False) -> torch.Tensor:
+        """Every block, the final norm, the CLS token: [B, D] (``tpu_ac``'s
+        ``vit_cls_forward``, the DINO training forward).  ``remat=True``
+        recomputes each block's activations in the backward; ``"dots"``
+        keeps the linears' outputs and recomputes the rest."""
+        if remat not in (False, True, "dots"):
+            raise ValueError(f"remat {remat!r}; want False, True or 'dots'")
+        x = self.prepare_tokens(images)
+        for blk in self.blocks:
+            x = _run_block(blk, x, remat)
+        return self.norm(x[:, 0])  # per token: the CLS row alone suffices

@@ -62,19 +62,67 @@ def _cubic_tables(in_size: int, out_size: int, scale_factor: float | None):
     return taps, _cubic_kernel(src - i0).astype(np.float32)
 
 
-def _resample_axis(x: torch.Tensor, axis: int, idx: np.ndarray,
-                   w: np.ndarray) -> torch.Tensor:
+@functools.lru_cache(maxsize=256)
+def _device_tables(tables, in_size: int, out_size: int,
+                   scale_factor: float | None, device: torch.device):
+    """``tables``' indices and weights, one tensor a tap, and the dense
+    [out, in] matrix of the taps' weights summed per source (the
+    backward's), on ``device``, copied there once: a copy from pageable
+    host memory to the card waits for the card's queue to drain."""
+    idx, w = tables(in_size, out_size, scale_factor)
+    m = np.zeros((idx.shape[0], in_size), np.float32)
+    np.add.at(m, (np.arange(idx.shape[0])[:, None], idx), w)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return ([put(idx[:, k]) for k in range(idx.shape[1])],
+            [put(w[:, k]) for k in range(idx.shape[1])], put(m))
+
+
+def _resample_taps(x: torch.Tensor, axis: int, tabs) -> torch.Tensor:
     """out[o] = sum_k w[o, k] * x[idx[o, k]] along ``axis``, taps added in
     order."""
+    idx, w, _ = tabs
     shape = [1] * x.ndim
     shape[axis] = -1
     out = None
-    for k in range(idx.shape[1]):
-        g = torch.index_select(x, axis, torch.from_numpy(idx[:, k]).to(
-            x.device))
-        t = g * torch.from_numpy(w[:, k]).to(x.device, x.dtype).reshape(shape)
+    for i_k, w_k in zip(idx, w):
+        t = torch.index_select(x, axis, i_k) * w_k.to(x.dtype).reshape(shape)
         out = t if out is None else out + t
     return out
+
+
+class _ResampleAxis(torch.autograd.Function):
+    """``_resample_taps`` with a deterministic backward.
+
+    The autograd of ``index_select`` is ``index_add_``, which sums with
+    atomics on the card, so two runs of one train step would differ in the
+    last bits of the gradient of whatever was resampled (the ViT's
+    pos_embed, for the local crops).  The resample is linear, out = M x
+    along ``axis`` with M [out, in] the taps' weights summed per source,
+    so the backward is the product Mᵀ g, in a fixed order.
+    """
+
+    @staticmethod
+    def forward(ctx, x, axis, tabs):
+        ctx.axis, ctx.m = axis, tabs[2]
+        return _resample_taps(x, axis, tabs)
+
+    @staticmethod
+    def backward(ctx, g):
+        gx = torch.movedim(torch.movedim(g, ctx.axis, -1) @ ctx.m.to(g.dtype),
+                           -1, ctx.axis)
+        return gx, None, None
+
+
+def _resample_axis(x: torch.Tensor, axis: int, tables, out_size: int,
+                   scale_factor: float | None) -> torch.Tensor:
+    tabs = _device_tables(tables, x.shape[axis], out_size, scale_factor,
+                          x.device)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ResampleAxis.apply(x, axis, tabs)
+    return _resample_taps(x, axis, tabs)
 
 
 def interpolate_bilinear(x: torch.Tensor, size: tuple[int, int],
@@ -82,10 +130,8 @@ def interpolate_bilinear(x: torch.Tensor, size: tuple[int, int],
                          ) -> torch.Tensor:
     """F.interpolate(mode="bilinear", align_corners=False), last 2 axes."""
     sf_h, sf_w = scale_factor if scale_factor is not None else (None, None)
-    out = _resample_axis(x, x.ndim - 2, *_linear_tables(x.shape[-2], size[0],
-                                                        sf_h))
-    return _resample_axis(out, x.ndim - 1, *_linear_tables(x.shape[-1],
-                                                           size[1], sf_w))
+    out = _resample_axis(x, x.ndim - 2, _linear_tables, size[0], sf_h)
+    return _resample_axis(out, x.ndim - 1, _linear_tables, size[1], sf_w)
 
 
 def interpolate_bicubic(x: torch.Tensor, size: tuple[int, int] | None = None,
@@ -99,5 +145,5 @@ def interpolate_bicubic(x: torch.Tensor, size: tuple[int, int] | None = None,
         size = (int(np.floor(h * scale_factor[0])),
                 int(np.floor(w_in * scale_factor[1])))
     sf_h, sf_w = scale_factor if scale_factor is not None else (None, None)
-    out = _resample_axis(x, x.ndim - 2, *_cubic_tables(h, size[0], sf_h))
-    return _resample_axis(out, x.ndim - 1, *_cubic_tables(w_in, size[1], sf_w))
+    out = _resample_axis(x, x.ndim - 2, _cubic_tables, size[0], sf_h)
+    return _resample_axis(out, x.ndim - 1, _cubic_tables, size[1], sf_w)
