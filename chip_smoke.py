@@ -13,10 +13,11 @@ Phases, each fatal on failure:
      at the four rank placements of tests/test_kernels.py x f32/bf16;
      then the wgmma/TMA stress shapes: N = 1 (window: 2 images), P, Q in
      {20, 112, 130, 784}, D in {96, 4096}, every mode and precision.
-     flash_attention: bf16 and f32 on the strided q/k/v views of a packed
-     qkv, at the main path's [8, 12, 785, 64], at S = 1, 17, 26, 127, 128,
-     129, 130 (the cp.async tiles' edges), and at S=256 with a segment mask
-     over the last 56 keys;
+     flash_attention: bf16 and f32 (3xTF32) on the strided q/k/v views of a
+     packed qkv, at the main path's [8, 12, 785, 64], at S = 1, 17, 26,
+     127, 128, 129, 130 (the cp.async tiles' edges), at S=256 with a
+     segment mask over the last 56 keys, and at head dims 16, 32, 48
+     (zero-padded to 64);
   4. main path: a synthetic MVTec tree of two categories (84 and 168 test
      images, 256 px sources) through tpu_ac_torch.cli.main with the CLI
      defaults (ViT-B/8 full width on its seeded random init, blocks.10+11,
@@ -32,9 +33,12 @@ Phases, each fatal on failure:
      --install, the embedder built from that cache dir with
      attention_impl="flash" (its weights checked exactly), two sweeps of
      the same tree with their flash launches counted (12 blocks x 32
-     batches), their pickles checked, bottle's embeddings against the
-     dense and f32 embedders of the same weights, embed ms/image flash vs
-     dense, sweep img/s, and one profiled sweep;
+     batches, none f32), their pickles checked, bottle's embeddings
+     against the dense and f32 embedders of the same weights; then bottle
+     through an f32 flash embedder (precision="highest", the f32 kernel:
+     its 132 launches asserted, all f32) against the dense f32 embedding
+     within F32_FLASH_GAP_BOUND; embed ms/image flash vs dense in bf16 and
+     in f32, sweep img/s, and one profiled sweep;
   6. mesh path: the same tree through run_category_sweep with the CLI
      defaults on a virtual dp mesh of 2 x cuda:0 (one process runs the
      ranks one after another, each at its shape on a real 2-card mesh):
@@ -121,6 +125,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM dense peaks at 700 W (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12  # outside the tensor cores
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 SOURCE = "tpu_ac_torch/csrc/min_dists.cu"
 REPLACES = "tpu_ac/kernels/distances.py:219"
@@ -130,6 +135,15 @@ FLASH_REPLACES = "tpu_ac/kernels/attention.py:26"
 # B, H, S, Dh of the flash path: ViT-B/8 at 224 px (784 patches + CLS),
 # batch 8
 FLASH_SHAPE = (8, 12, 785, 64)
+# The f32 flash embed against the dense f32 embed of the same weights,
+# relative L2: each of the 12 attention calls up to blocks.11 may move its
+# output by 1e-5 of the attention of |V| (the f32 rule of
+# attention.flash_tolerance); allowing each call a relative effect on the
+# embeddings of up to 8x that (the attention of |V| against that of V, and
+# the gain of the blocks after it) gives 12 x 8 x 1e-5, under ZOO_GAP_BOUND
+# (1e-3).  A single-pass TF32 kernel sits 20-25x over the 1e-5 rule
+# (tests/test_torch_flash_f32.py), a wrong one at O(1).
+F32_FLASH_GAP_BOUND = 12 * 8 * 1e-5
 # the SFU's exponentials: 16 per clock per SM, 132 SMs at the 1.98 GHz boost
 EXP_PER_S = 16 * 132 * 1.98e9
 # weights of the checkpoint route: a seed other than the registry's seed-0
@@ -564,6 +578,11 @@ def phase_flash_kernel(torch, attn) -> float:
         errs.append(_flash_check(torch, attn, q, k, v, bias,
                                  f"[{b}, {h}, 256, {dh}] segment mask "
                                  "over the last 56 keys"))
+        # head dims below 64: zero-padded to 64 by the wrapper
+        for dh_small in (16, 32, 48):
+            q, k, v = _packed_qkv(torch, gen, b, h, 130, dh_small, dtype)
+            errs.append(_flash_check(torch, attn, q, k, v, None,
+                                     f"[{b}, {h}, 130, {dh_small}]"))
     return max(errs)
 
 
@@ -571,7 +590,8 @@ def phase_flash_timing(torch, attn) -> dict:
     """Times at the flash path's shape, bf16: the kernel, its plain
     version, the dense bf16 attention the ViT runs without it, and
     scaled_dot_product_attention as the library yardstick; then the f32
-    variant, its plain version and scaled_dot_product_attention in f32."""
+    variant (checked again on its timed inputs), its plain version and
+    scaled_dot_product_attention in f32."""
     import torch.nn.functional as F
 
     b, h, s, dh = FLASH_SHAPE
@@ -606,24 +626,32 @@ def phase_flash_timing(torch, attn) -> dict:
           f"{t_exp:.4f} ms), plain {plain_ms:.4f} ms, dense bf16 "
           f"{dense_ms:.4f} ms, scaled_dot_product_attention "
           f"{library_ms:.4f} ms", flush=True)
-    # the f32 variant (precision="default"/"highest"): FMAs, no tensor
-    # cores; its bound is the 67 TFLOP/s f32 peak
+    # the f32 variant (precision="default"/"highest"): 3xTF32 on the tensor
+    # cores, three TF32 products for each of the f32 ones; the f32 FMA
+    # bound beside it (the variant's first design had no tensor cores)
     q, k, v = (t.float() for t in (q, k, v))
-    f32_ms, _ = _time_ms(lambda: attn.flash_attention_impl(q, k, v, scale),
-                         reps=20, warmup=3)
+    err = max(err, _flash_check(torch, attn, q, k, v, None,
+                                f"[{b}, {h}, {s}, {dh}] (timed inputs)"))
+    f32_ms, f32_host_ms = _time_ms(
+        lambda: attn.flash_attention_impl(q, k, v, scale), reps=20, warmup=3)
     f32_plain_ms, _ = _time_ms(
         lambda: attn.flash_attention_plain(q, k, v, scale), reps=20,
         warmup=3)
     f32_library_ms, _ = _time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, scale=scale), reps=20, warmup=3)
+    f32_bound = 3 * flops / PEAK_TF32_FLOPS * 1e3
     print(f"timing flash f32 [{b}, {h}, {s}, {dh}]: kernel {f32_ms:.4f} ms "
-          f"({flops / f32_ms / 1e9:.1f} TFLOP/s), bound "
-          f"{flops / PEAK_F32_FLOPS * 1e3:.4f} ms (operations, f32 FMA "
-          f"peak), plain {f32_plain_ms:.4f} ms, scaled_dot_product_attention"
-          f" f32 {f32_library_ms:.4f} ms", flush=True)
+          f"({flops / f32_ms / 1e9:.1f} TFLOP/s of f32 work; its wrapper "
+          f"{f32_host_ms:.4f} ms a call on the host), bound "
+          f"{f32_bound:.4f} ms (operations, 3xTF32: 3 x {flops / 1e9:.2f} "
+          f"GFLOP at the TF32 peak; bytes {2 * t_bytes:.4f} ms; f32 FMA "
+          f"{flops / PEAK_F32_FLOPS * 1e3:.4f} ms), plain "
+          f"{f32_plain_ms:.4f} ms, scaled_dot_product_attention f32 "
+          f"{f32_library_ms:.4f} ms", flush=True)
     return dict(ms=ms, host_ms=host_ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=bound_by, library_ms=library_ms, dense_ms=dense_ms,
-                f32_ms=f32_ms, f32_plain_ms=f32_plain_ms,
+                f32_ms=f32_ms, f32_host_ms=f32_host_ms,
+                f32_bound_ms=f32_bound, f32_plain_ms=f32_plain_ms,
                 f32_library_ms=f32_library_ms, max_abs_err=err)
 
 
@@ -869,17 +897,18 @@ def phase_flash_path(torch, dist, attn, work: str, root: str,
     out_dir = os.path.join(work, "out_flash")
     sweep_s = []
     for _ in range(2):  # the first is warm-up
-        dist.LAUNCHES = attn.LAUNCHES = 0
+        dist.LAUNCHES = attn.LAUNCHES = attn.LAUNCHES_F32 = 0
         t0 = time.perf_counter()
         for _c, _r in run_category_sweep(root, cats, cfg, emb,
                                          output_dir=out_dir):
             pass
         sweep_s.append(time.perf_counter() - t0)
         launches = {"flash_attention": attn.LAUNCHES,
+                    "of_them_f32": attn.LAUNCHES_F32,
                     "min_dists_symmetric": dist.LAUNCHES}
         print(f"flash sweep: launches {launches}", flush=True)
-        if launches["flash_attention"] != want or \
-                launches["min_dists_symmetric"] != len(cats):
+        if launches["flash_attention"] != want or launches["of_them_f32"] \
+                or launches["min_dists_symmetric"] != len(cats):
             _fatal(f"the flash sweep launched {launches}; want "
                    f"{want} flash launches (12 blocks x "
                    f"{want // 12} batches) and {len(cats)} min_dists")
@@ -890,11 +919,34 @@ def phase_flash_path(torch, dist, attn, work: str, root: str,
               .load_all_images() for c in cats}
     dense = build_embedder_for_config(cfg, device="cuda",
                                       checkpoint_dir=ckpt_dir)
-    f32 = build_embedder_for_config(
-        PipelineConfig(batch_size=8, precision="highest"), device="cuda",
-        checkpoint_dir=ckpt_dir)
+    cfg32 = PipelineConfig(batch_size=8, precision="highest")
+    f32 = build_embedder_for_config(cfg32, device="cuda",
+                                    checkpoint_dir=ckpt_dir)
     small = cats[0]
     Zf, Zd, Z32 = (e(images[small]) for e in (emb, dense, f32))
+    # and through the f32 flash embedder: the f32 kernel, 12 launches a
+    # batch of 8, none of the bf16 variant
+    f32_flash = build_embedder_for_config(cfg32, device="cuda",
+                                          checkpoint_dir=ckpt_dir,
+                                          attention_impl="flash")
+    want32 = 12 * math.ceil(sizes[small] / cfg32.batch_size)
+    attn.LAUNCHES = attn.LAUNCHES_F32 = 0
+    Zf32 = f32_flash(images[small])
+    torch.cuda.synchronize()
+    launches32 = (attn.LAUNCHES, attn.LAUNCHES_F32)
+    if launches32 != (want32, want32):
+        _fatal(f"the f32 flash embed of {small} launched {launches32} "
+               f"(all, f32); want {want32} f32 launches and no other")
+    gap32 = _rel_gap(torch, Zf32, Z32)
+    if not (gap32 <= F32_FLASH_GAP_BOUND and bool(
+            torch.isfinite(Zf32).all()) and Zf32.shape == Z32.shape):
+        _fatal(f"f32 flash vs dense f32 embeddings of {small}: relative L2 "
+               f"{gap32:.3e} > {F32_FLASH_GAP_BOUND:.1e}, or non-finite")
+    print(f"{small}'s f32 flash embed: {launches32[1]} f32 kernel launches "
+          f"({want32 // 12} batches x 12 blocks), relative L2 gap to the "
+          f"dense f32 embed {gap32:.3e} (bound {F32_FLASH_GAP_BOUND:.1e})",
+          flush=True)
+    del Zf32
     gap, noise = _rel_gap(torch, Zf, Zd), _rel_gap(torch, Zd, Z32)
     flash_f32 = _rel_gap(torch, Zf, Z32)
     a_f, _ = compute_alpha_X(Zf, "unsupervised", 1.0, precision="bf16")
@@ -912,11 +964,12 @@ def phase_flash_path(torch, dist, attn, work: str, root: str,
     if not gap <= 3.0 * noise:
         _fatal(f"flash vs dense embeddings {gap:.3e} > 3 x the bf16 "
                f"rounding noise {noise:.3e}")
-    del Zf, Zd, Z32, f32
+    del Zf, Zd, Z32
 
     embed_ms = {}
     big = cats[-1]
-    for tag, e in (("flash", emb), ("dense", dense)):
+    for tag, e in (("flash", emb), ("dense", dense),
+                   ("flash_f32", f32_flash), ("dense_f32", f32)):
         e(images[big])  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -925,15 +978,19 @@ def phase_flash_path(torch, dist, attn, work: str, root: str,
         embed_ms[tag] = (time.perf_counter() - t0) * 1e3 / sizes[big]
     n_img = sum(sizes.values())
     print(f"flash path: embed {embed_ms['flash']:.3f} ms/image (dense "
-          f"{embed_ms['dense']:.3f}, same weights, bf16, batch 8), sweep "
+          f"{embed_ms['dense']:.3f}, same weights, bf16, batch 8); f32 "
+          f"(precision highest) flash {embed_ms['flash_f32']:.3f} ms/image "
+          f"(dense f32 {embed_ms['dense_f32']:.3f}); sweep "
           f"{n_img / sweep_s[-1]:.1f} img/s over {n_img} images (sweeps "
           f"{sweep_s} s)", flush=True)
+    del f32, f32_flash
     busy = _profile_sweep(
         torch, lambda: run_category_sweep(root, cats, cfg, emb), sweep_s[-1])
     return dict(launches=launches["flash_attention"], embed_ms=embed_ms,
                 sweep_img_s=n_img / sweep_s[-1], busy_pct=busy,
                 convert_s=convert_s, rel_gaps=[gap, noise, flash_f32],
-                alpha_gap=alpha_gap)
+                alpha_gap=alpha_gap, f32_gap=gap32,
+                f32_launches=launches32[1])
 
 
 def _d_bound(torch, mins, Z, bank):
@@ -1945,13 +2002,22 @@ def main() -> None:
         "flash_host_ms": r4(t["host_ms"]),
         "flash_gap_over_tol": {d: r4(w) for d, w in FLASH_WORST.items()},
         "flash_f32_ms": r4(t["f32_ms"]),
+        "flash_f32_host_ms": r4(t["f32_host_ms"]),
+        "flash_f32_bound_ms": r4(t["f32_bound_ms"]),
         "flash_f32_plain_ms": r4(t["f32_plain_ms"]),
         "flash_f32_library_ms": r4(t["f32_library_ms"]),
         "dense_attention_ms": r4(t["dense_ms"]),
         "embed_ms_per_image": {"dense": r4(run["embed_ms_per_image"]),
                                "flash": r4(flash_run["embed_ms"]["flash"]),
                                "dense_same_weights":
-                                   r4(flash_run["embed_ms"]["dense"])},
+                                   r4(flash_run["embed_ms"]["dense"]),
+                               "flash_f32":
+                                   r4(flash_run["embed_ms"]["flash_f32"]),
+                               "dense_f32_same_weights":
+                                   r4(flash_run["embed_ms"]["dense_f32"])},
+        "bottle_f32_flash": {
+            "launches": flash_run["f32_launches"],
+            "rel_l2_to_dense_f32": float(f"{flash_run['f32_gap']:.4g}")},
         "sweep_img_s": {"dense": r4(run["sweep_img_s"]),
                         "flash": r4(flash_run["sweep_img_s"])},
         "busy_pct": {"dense": r4(run["busy_pct"]),

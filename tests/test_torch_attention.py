@@ -180,12 +180,14 @@ def test_cpu_call_launches_nothing():
     (torch.bfloat16, 1, None), (torch.bfloat16, 17, None),
     (torch.bfloat16, 127, None), (torch.bfloat16, 128, None),
     (torch.bfloat16, 129, None), (torch.float32, 1, None),
-    (torch.float32, 129, None)])
+    (torch.float32, 17, None), (torch.float32, 127, None),
+    (torch.float32, 128, None), (torch.float32, 129, None),
+    (torch.float32, 130, None)])
 def test_kernel_matches_plain_on_card(dtype, s, n_valid):
     """The CUDA kernel vs the plain version on the card, on the strided
     views of a packed qkv, element by element within flash_tolerance (bf16:
-    the kernel's rounding of P and of both outputs; f32: 1e-5 of the
-    attention of |V|); a CUDA call counts one launch."""
+    the kernel's rounding of P and of both outputs; f32, 3xTF32: 1e-5 of
+    the attention of |V|); a CUDA call counts one launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (a CUDA kernel has no CPU mode)")
     rng = np.random.default_rng(4)

@@ -47,16 +47,47 @@
 //     (template SEG), test keys one by one; full tiles take no predicate.
 //   - A row that has seen no visible key yet has m = -inf; the exponentials
 //     then subtract 0 instead of m, so exp2(-inf - -inf) never makes a NaN.
-// The f32 variant (precision="default"/"highest") is the first design: one
-// thread per query row, f32 FMAs over 64-key tiles, the rescale once per 16
-// keys.
 //
-// Bound at the main path's shape (B=8, H=12, S=785, Dh=64, bf16; H100 SXM at
-// 700 W): operations 4*B*H*S^2*Dh = 15.14 GFLOP, 15.3 us at 989 TFLOP/s;
-// bytes q, k, v read and out written once, 38.6 MB, 11.5 us at 3.35 TB/s;
+// Design of the f32 variant (precision="default"/"highest"): the same
+// FlashAttention-2 structure on the tensor cores, with f32 accuracy from
+// 3xTF32 (the technique of CUTLASS's OpMultiplyAddFastF32, written out here).
+//   - Each f32 operand x splits into hi, x truncated to tf32, and lo = x -
+//     hi, which the tensor cores truncate to tf32 (split_tf32).  a.b is
+//     then d += a_lo.b_hi + a_hi.b_lo, then d += a_hi.b_hi, each an
+//     mma.sync m16n8k8 tf32 with f32 accumulation; a_lo.b_lo (under 2^-20
+//     relative) is dropped.
+//     QK^T and P.V both run so; P is split in registers after the
+//     exponentials while l sums the unsplit f32 P.
+//   - A block owns a 128-row Q tile of one (b, h): 4 warps of 32 rows (two
+//     m16 tiles each, so every K and V fragment loaded and split feeds 6
+//     mma); 96 KB of shared memory (Q, and K/V tiles of 64 keys in a ring
+//     of 2 stages) and at most 255 registers a thread give 2 blocks an SM.
+//     8 warps of 16 rows spill at their 128 registers and ran 2% slower
+//     (scripts/kernel_ab.py variant fa32_rows16; PERF.md, PR 8).
+//   - f32 rows are 256 B, their sixteen 16-byte chunks XOR-swizzled by row &
+//     7.  Q's A fragments and K's B fragments (row g, column t of 8 x 4-float
+//     blocks) are exactly what ldmatrix gives for 32-bit elements; V's B
+//     fragment (key t, column g) is not, and ldmatrix.trans cannot transpose
+//     32-bit elements, so V is read by plain 32-bit loads.  The C fragment
+//     of QK^T holds keys 2t and 2t+1 where P.V's A fragment wants keys t and
+//     t+4, so P.V's k index is permuted instead of the registers: logical
+//     key t is key 2t, logical key t+4 is key 2t+1, and V's rows are read in
+//     that order.  Under the swizzle every ldmatrix and every V load touches
+//     32 distinct banks.
+//   - K and V are split per warp, in registers, as they are loaded.  Split
+//     once a tile in shared memory instead (hi in place, lo in tiles of
+//     their own: 160 KB, 1 block an SM, a second barrier a tile) they ran
+//     15% slower (variant fa32_smem_split).  The online softmax, SEG, the
+//     m = -inf guard and the ragged tiles are the bf16 variant's.
+//
+// Bounds at the main path's shape (B=8, H=12, S=785, Dh=64; H100 SXM at
+// 700 W): operations 4*B*H*S^2*Dh = 15.14 GFLOP, 15.3 us at 989 TFLOP/s in
+// bf16; f32: 3 x 15.14 GFLOP at the 495 TFLOP/s of TF32, 91.8 us (226 us
+// at the 67 TFLOP/s of the f32 FMAs); bytes q, k, v read and out written
+// once, 38.6 MB in bf16 (11.5 us at 3.35 TB/s), 77.2 MB in f32 (23.0 us);
 // exponentials B*H*S^2 = 59.2 M, about 14 us at the SFU's 16 per clock per
-// SM.  So it is bounded by operations, with the exponentials close behind;
-// mma.sync (not wgmma) caps the tensor cores near two thirds of that peak.
+// SM.  Both variants are bounded by operations; mma.sync (not wgmma) caps
+// the tensor cores near two thirds of their peak.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,16 +96,20 @@
 namespace {
 
 constexpr int DH = 64;        // head dim (every dino_vit* name)
-constexpr int BQ = 128;       // bf16: query rows per block
+constexpr int BQ = 128;       // query rows per block
 constexpr int WARP_ROWS = 32;  // bf16: query rows a warp (4 warps)
 constexpr int BF16_THREADS = BQ / WARP_ROWS * 32;
-constexpr int BM = 64;        // f32: query rows (threads) per block
+constexpr int F32_BQ = 128;        // f32: query rows per block
+constexpr int F32_WARP_ROWS = 32;  // f32: query rows a warp (4 warps)
+constexpr int F32_THREADS = F32_BQ / F32_WARP_ROWS * 32;
 constexpr int BN = 64;        // keys per K/V tile
 constexpr int KV_STAGES = 3;  // bf16: K/V ring depth
-constexpr int CHUNK = 16;     // f32: keys per online-softmax rescale
+constexpr int F32_STAGES = 2;  // f32: K/V ring depth
 constexpr float LOG2E = 1.4426950408889634f;
 // bf16 shared memory: the Q tile and KV_STAGES K and V tiles, 128-B rows
 constexpr int BF16_SMEM = (BQ + 2 * KV_STAGES * BN) * DH * 2;
+// f32: the Q tile and F32_STAGES K and V tiles, 256-B rows
+constexpr int F32_SMEM = (F32_BQ + 2 * F32_STAGES * BN) * DH * 4;
 
 struct Strides {
   long long b, h, s;  // elements
@@ -106,10 +141,45 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Element offset of 16-byte chunk `ch` (0..7) of row `r` in a tile of
-// 128-byte rows, the chunks XOR-swizzled by r & 7.
+// d += a . b for one m16n8k8 tile: tf32 operands (f32 bits, the low 13
+// ignored), f32 accumulator.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo in two instructions: hi is x truncated to tf32 (10 mantissa
+// bits), lo = x - hi the exact rest (|lo| < 2^-10 |x|), which the tensor
+// cores read truncated to tf32 too (they ignore the low 13 bits), so hi +
+// lo keeps x to 2^-20 |x|.  Rounding hi to nearest (one op more) and lo as
+// well (two more) ran 5% and 10% slower (PERF.md, PR 8).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// 3xTF32: d += a_lo . b_hi + a_hi . b_lo, then d += a_hi . b_hi.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh[0], bh[1]);
+  mma_tf32(d, ah, bl[0], bl[1]);
+  mma_tf32(d, ah, bh[0], bh[1]);
+}
+
+// Element offset of 16-byte chunk `ch` of row `r` in a tile of DH-element
+// rows of T, the chunks XOR-swizzled by r & 7 (a bf16 row has 8 chunks, an
+// f32 row 16, whose low 3 bits the XOR moves).
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ int swz(int r, int ch) {
-  return r * DH + ((ch ^ (r & 7)) << 3);
+  return r * DH + (ch ^ (r & 7)) * (16 / static_cast<int>(sizeof(T)));
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -136,18 +206,19 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
 
 // Rows [r0, r0 + ROWS) of one (b, h) slice into a swizzled shared tile by
 // cp.async; rows >= S are zero-filled (source size 0, address clamped).
-template <int ROWS, int THREADS>
-__device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src,
+template <int ROWS, int THREADS, typename T>
+__device__ __forceinline__ void load_rows_async(T* dst, const T* src,
                                                 long long ss, int r0, int S) {
+  constexpr int PER = 16 / sizeof(T);     // elements a chunk
+  constexpr int SHIFT = PER == 8 ? 3 : 4;  // log2 of the chunks a row
 #pragma unroll
-  for (int c = threadIdx.x; c < ROWS * (DH / 8); c += THREADS) {
-    const int row = c >> 3;
-    const int ch = c & 7;
+  for (int c = threadIdx.x; c < ROWS << SHIFT; c += THREADS) {
+    const int row = c >> SHIFT;
+    const int ch = c & ((1 << SHIFT) - 1);
     const int n = r0 + row < S ? 16 : 0;
-    const __nv_bfloat16* g = src + min(r0 + row, S - 1) * ss + ch * 8;
+    const T* g = src + min(r0 + row, S - 1) * ss + ch * PER;
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_u32(dst + swz(row, ch))), "l"(g), "r"(n)
+                 :: "r"(smem_u32(dst + swz<T>(row, ch))), "l"(g), "r"(n)
                  : "memory");
   }
 }
@@ -387,105 +458,257 @@ __global__ void __launch_bounds__(BF16_THREADS, SEG ? 2 : 3)
   }
 }
 
-__global__ void __launch_bounds__(BM) flash_fwd_f32(Args a) {
-  __shared__ __align__(16) float ks[BN * DH];
-  __shared__ __align__(16) float vs[BN * DH];
-  __shared__ int kid[BN];
+// 2 blocks an SM (96 KB of shared memory each; at most 255 registers).
+template <bool SEG>
+__global__ void __launch_bounds__(F32_THREADS, 2) flash_fwd_f32(Args a) {
+  constexpr int THREADS = F32_THREADS;
+  constexpr int MT = F32_WARP_ROWS / 16;  // m16 tiles a warp
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);
+  float* ks = qs + F32_BQ * DH;               // [F32_STAGES][BN * DH]
+  float* vs = ks + F32_STAGES * BN * DH;  // [F32_STAGES][BN * DH]
 
   const int S = a.S;
+  const int q0 = blockIdx.x * F32_BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int i = blockIdx.x * BM + tid;  // this thread's query row
   const float* q = static_cast<const float*>(a.q) + b * a.sq.b + h * a.sq.h;
   const float* k = static_cast<const float*>(a.k) + b * a.sk.b + h * a.sk.h;
   const float* v = static_cast<const float*>(a.v) + b * a.sv.b + h * a.sv.h;
   float* o = static_cast<float*>(a.o) + b * a.so.b + h * a.so.h;
 
-  float qr[DH];
-#pragma unroll
-  for (int d = 0; d < DH; d += 4) {
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (i < S) x = *reinterpret_cast<const float4*>(q + i * a.sq.s + d);
-    qr[d] = x.x;
-    qr[d + 1] = x.y;
-    qr[d + 2] = x.z;
-    qr[d + 3] = x.w;
-  }
-  const int qid = a.seg ? a.seg[min(i, S - 1)] : 0;
-  float acc[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) acc[d] = 0.f;
-  float m = -INFINITY, l = 0.f;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // fragment row (and row + 8)
+  const int t = lane & 3;   // fragment column
+  const int wr = (threadIdx.x >> 5) * F32_WARP_ROWS;  // the warp's first row
+  const int n_kt = (S + BN - 1) / BN;
 
-  for (int k0 = 0; k0 < S; k0 += BN) {
-    __syncthreads();
-    for (int c = tid; c < BN * DH / 4; c += BM) {
-      const int row = c / (DH / 4);
-      const int col = (c % (DH / 4)) * 4;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-      if (k0 + row < S) {
-        kx = *reinterpret_cast<const float4*>(k + (k0 + row) * a.sk.s + col);
-        vx = *reinterpret_cast<const float4*>(v + (k0 + row) * a.sv.s + col);
-      }
-      *reinterpret_cast<float4*>(ks + row * DH + col) = kx;
-      *reinterpret_cast<float4*>(vs + row * DH + col) = vx;
-    }
-    kid[tid] = (a.seg && k0 + tid < S) ? a.seg[k0 + tid] : 0;
-    __syncthreads();
+  // cp.async groups: Q with K/V tile 0, then tile kt + 1 at tile kt, so
+  // "tile kt has landed" is wait_group 0 at kt
+  load_rows_async<F32_BQ, THREADS>(qs, q, a.sq.s, q0, S);
+  load_rows_async<BN, THREADS>(ks, k, a.sk.s, 0, S);
+  load_rows_async<BN, THREADS>(vs, v, a.sv.s, 0, S);
+  cp_async_commit();
 
-    for (int j0 = 0; j0 < BN; j0 += CHUNK) {
-      float s[CHUNK];
-      float mx = -INFINITY;
+  int qid[MT][2];
 #pragma unroll
-      for (int jj = 0; jj < CHUNK; ++jj) {
-        const float* kr = ks + (j0 + jj) * DH;
-        float dot = 0.f;
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int d = 0; d < DH; ++d) dot = fmaf(qr[d], kr[d], dot);
-        const bool ok = k0 + j0 + jj < S && kid[j0 + jj] == qid;
-        s[jj] = ok ? dot * a.c : -INFINITY;
-        mx = fmaxf(mx, s[jj]);
-      }
-      const float mn = fmaxf(m, mx);
-      const float base = mn == -INFINITY ? 0.f : mn;
-      const float corr = exp2f(m - base);
-      m = mn;
-      l *= corr;
+    for (int e = 0; e < 2; ++e)
+      qid[mt][e] = SEG ? a.seg[min(q0 + wr + 16 * mt + g + 8 * e, S - 1)]
+                       : 0;
+
+  float acc[MT][DH / 8][4];
+  float m[MT][2], l[MT][2];
 #pragma unroll
-      for (int d = 0; d < DH; ++d) acc[d] *= corr;
+  for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-      for (int jj = 0; jj < CHUNK; ++jj) {
-        const float p = exp2f(s[jj] - base);
-        const float* vr = vs + (j0 + jj) * DH;
-        l += p;
-#pragma unroll
-        for (int d = 0; d < DH; ++d) acc[d] = fmaf(p, vr[d], acc[d]);
-      }
-    }
+    for (int d = 0; d < DH / 8; ++d)
+      acc[mt][d][0] = acc[mt][d][1] = acc[mt][d][2] = acc[mt][d][3] = 0.f;
+    m[mt][0] = m[mt][1] = -INFINITY;
+    l[mt][0] = l[mt][1] = 0.f;
   }
 
-  if (i < S) {
-    const float inv = l > 0.f ? 1.f / l : 0.f;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BN;
+    cp_async_wait<0>();  // tile kt has landed
+    __syncthreads();
+    // tile kt + 1 goes to the stage of kt - 1, which every warp finished
+    // before the barrier above; it flies while kt computes
+    if (kt + 1 < n_kt) {
+      const int st = (kt + 1) % F32_STAGES;
+      load_rows_async<BN, THREADS>(ks + st * BN * DH, k, a.sk.s, k0 + BN, S);
+      load_rows_async<BN, THREADS>(vs + st * BN * DH, v, a.sv.s, k0 + BN, S);
+    }
+    cp_async_commit();
+    // a warp whose rows all lie past S only helps with the copies
+    if (q0 + wr >= S) continue;
+    const float* kst = ks + (kt % F32_STAGES) * BN * DH;
+    const float* vst = vs + (kt % F32_STAGES) * BN * DH;
+
+    // scores of the warp's rows x 64 keys: 8 n-tiles of 8 keys, 8 steps of
+    // 8 dims; one ldmatrix.x4 gives the B fragments of two n-tiles
+    float s[MT][BN / 8][4];
 #pragma unroll
-    for (int d = 0; d < DH; d += 4)
-      *reinterpret_cast<float4*>(o + i * a.so.s + d) =
-          make_float4(acc[d] * inv, acc[d + 1] * inv, acc[d + 2] * inv,
-                      acc[d + 3] * inv);
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n)
+        s[mt][n][0] = s[mt][n][1] = s[mt][n][2] = s[mt][n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DH / 8; ++kk) {
+      // A fragments of the warp's Q rows; matrix lane >> 3 takes rows + 8
+      // if odd and the next chunk (columns + 4) if >= 2
+      uint32_t qh[MT][4], ql[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t qf[4];
+        ldsm_x4(qf, qs + swz<float>(wr + 16 * mt + (lane & 7) +
+                                        ((lane >> 3) & 1) * 8,
+                                    2 * kk + (lane >> 4)));
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          split_tf32(__uint_as_float(qf[e]), qh[mt][e], ql[mt][e]);
+      }
+#pragma unroll
+      for (int np = 0; np < BN / 16; ++np) {
+        // matrices: keys + 0 or + 8 (lane >> 4), the chunk of columns + 0
+        // or + 4 (lane >> 3 & 1): b0, b1 of n-tile 2 np, then of 2 np + 1
+        uint32_t kb[4];
+        ldsm_x4(kb, kst + swz<float>(np * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                     2 * kk + ((lane >> 3) & 1)));
+        uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          split_tf32(__uint_as_float(kb[e]), bh[e >> 1][e & 1],
+                     bl[e >> 1][e & 1]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_3xtf32(s[mt][2 * np], qh[mt], ql[mt], bh[0], bl[0]);
+          mma_3xtf32(s[mt][2 * np + 1], qh[mt], ql[mt], bh[1], bl[1]);
+        }
+      }
+    }
+
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      if (SEG || k0 + BN > S) {
+#pragma unroll
+        for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + n * 8 + 2 * t + (e & 1);
+            bool ok = col < S;
+            if (SEG) ok = ok && a.seg[min(col, S - 1)] == qid[mt][e >> 1];
+            if (!ok) s[mt][n][e] = -INFINITY;
+          }
+      }
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n) {
+        mx0 = fmaxf(mx0, fmaxf(s[mt][n][0], s[mt][n][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[mt][n][2], s[mt][n][3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m[mt][0], mx0 * a.c);
+      const float mn1 = fmaxf(m[mt][1], mx1 * a.c);
+      const float base0 = mn0 == -INFINITY ? 0.f : mn0;
+      const float base1 = mn1 == -INFINITY ? 0.f : mn1;
+      const float corr0 = ex2(m[mt][0] - base0);
+      const float corr1 = ex2(m[mt][1] - base1);
+      m[mt][0] = mn0;
+      m[mt][1] = mn1;
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n) {
+        s[mt][n][0] = ex2(fmaf(s[mt][n][0], a.c, -base0));
+        s[mt][n][1] = ex2(fmaf(s[mt][n][1], a.c, -base0));
+        s[mt][n][2] = ex2(fmaf(s[mt][n][2], a.c, -base1));
+        s[mt][n][3] = ex2(fmaf(s[mt][n][3], a.c, -base1));
+        rs0 += s[mt][n][0] + s[mt][n][1];
+        rs1 += s[mt][n][2] + s[mt][n][3];
+      }
+      l[mt][0] = l[mt][0] * corr0 + rs0;
+      l[mt][1] = l[mt][1] * corr1 + rs1;
+#pragma unroll
+      for (int d = 0; d < DH / 8; ++d) {
+        acc[mt][d][0] *= corr0;
+        acc[mt][d][1] *= corr0;
+        acc[mt][d][2] *= corr1;
+        acc[mt][d][3] *= corr1;
+      }
+    }
+
+    // acc += P V over 8 steps of 8 keys.  The C fragment of n-tile j holds
+    // keys 8j + 2t and 8j + 2t + 1 of rows g and g + 8: it is step j's A
+    // fragment with logical key t read as key 2t and t + 4 as 2t + 1, so
+    // V's B fragment takes rows 8j + 2t and 8j + 2t + 1 at column g
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      uint32_t ph[MT][4], pl[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        split_tf32(s[mt][j][0], ph[mt][0], pl[mt][0]);
+        split_tf32(s[mt][j][2], ph[mt][1], pl[mt][1]);
+        split_tf32(s[mt][j][1], ph[mt][2], pl[mt][2]);
+        split_tf32(s[mt][j][3], ph[mt][3], pl[mt][3]);
+      }
+      const float* v0 = vst + (8 * j + 2 * t) * DH;  // row & 7 == 2t
+      const float* v1 = v0 + DH;                     // row & 7 == 2t + 1
+#pragma unroll
+      for (int dn = 0; dn < DH / 8; ++dn) {
+        // column 8 dn + g is element g % 4 of chunk 2 dn + g / 4
+        const int ch = 2 * dn + (g >> 2);
+        uint32_t bh[2], bl[2];
+        split_tf32(v0[((ch ^ (2 * t)) << 2) + (g & 3)], bh[0], bl[0]);
+        split_tf32(v1[((ch ^ (2 * t + 1)) << 2) + (g & 3)], bh[1], bl[1]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma_3xtf32(acc[mt][dn], ph[mt], pl[mt], bh, bl);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float l0 = l[mt][0], l1 = l[mt][1];
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
+    const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+    const int i0 = q0 + wr + 16 * mt + g;
+    const int i1 = i0 + 8;
+#pragma unroll
+    for (int d = 0; d < DH / 8; ++d) {
+      const int col = d * 8 + 2 * t;
+      if (i0 < S)
+        *reinterpret_cast<float2*>(o + i0 * a.so.s + col) =
+            make_float2(acc[mt][d][0] * inv0, acc[mt][d][1] * inv0);
+      if (i1 < S)
+        *reinterpret_cast<float2*>(o + i1 * a.so.s + col) =
+            make_float2(acc[mt][d][2] * inv1, acc[mt][d][3] * inv1);
+    }
   }
 }
 
 }  // namespace
 
+// Launches `kernel` with SMEM bytes of dynamic shared memory; the limit is
+// raised once per device (a driver call that cost host time at every call).
+template <int SMEM>
+static cudaError_t launch(void (*kernel)(Args), bool (&raised)[64],
+                          const Args& a, dim3 grid, int threads,
+                          cudaStream_t s) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64 || !raised[dev]) {
+    err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) raised[dev] = true;
+  }
+  kernel<<<grid, threads, SMEM, s>>>(a);
+  return cudaGetLastError();
+}
+
 template <bool SEG>
 static cudaError_t launch_bf16(const Args& a, dim3 grid, cudaStream_t s) {
-  auto kernel = &flash_fwd_bf16<SEG>;
-  cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(kernel),
-      cudaFuncAttributeMaxDynamicSharedMemorySize, BF16_SMEM);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, BF16_THREADS, BF16_SMEM, s>>>(a);
-  return cudaGetLastError();
+  static bool raised[64];
+  return launch<BF16_SMEM>(&flash_fwd_bf16<SEG>, raised, a, grid,
+                           BF16_THREADS, s);
+}
+
+template <bool SEG>
+static cudaError_t launch_f32(const Args& a, dim3 grid, cudaStream_t s) {
+  static bool raised[64];
+  return launch<F32_SMEM>(&flash_fwd_f32<SEG>, raised, a, grid, F32_THREADS,
+                          s);
 }
 
 // C interface bound with ctypes by tpu_ac_torch/kernels/attention.py.
@@ -514,8 +737,9 @@ extern "C" int tpu_ac_flash_attention(const void* q, const void* k,
   a.c = scale * LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!is_bf16) {
-    flash_fwd_f32<<<dim3((S + BM - 1) / BM, H, B), BM, 0, s>>>(a);
-    return (int)cudaGetLastError();
+    const dim3 grid((S + F32_BQ - 1) / F32_BQ, H, B);
+    return (int)(seg ? launch_f32<true>(a, grid, s)
+                     : launch_f32<false>(a, grid, s));
   }
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   return (int)(seg ? launch_bf16<true>(a, grid, s)

@@ -13,13 +13,17 @@ bias raises ``NotImplementedError``, as in ``tpu_ac``.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs
 ``flash_attention_plain``.  The kernel takes any S (the ragged tail is
-masked in the kernel, not padded) and head dim 64 only.  It reads q, k, v
+masked in the kernel, not padded) and head dim 64: a smaller head dim is
+zero-padded to 64 (``pad_head_dim``, as ``tpu_ac`` pads to 128 lanes; zero
+columns change neither QK^T nor the kept columns of the output) and the
+output sliced back, a larger one raises.  bf16 runs on the tensor cores in
+bf16, f32 in 3xTF32 (f32 accuracy).  It reads q, k, v
 through their strides, so the strided views of a packed qkv projection go in
 without a copy; what it cannot address (a last dim that is not contiguous,
 rows not 16-byte aligned) raises instead of being copied.  The output is
 [B, H, S, Dh] laid out as [B, S, H, Dh] in memory, the layout the output
-projection reads.  The TPU tuning knobs (``TPU_AC_FLASH_BLOCK_*``, the head
-dim's zero padding to 128 lanes) are not carried.
+projection reads.  The TPU tuning knobs (``TPU_AC_FLASH_BLOCK_*``) are not
+carried.
 """
 
 from __future__ import annotations
@@ -28,11 +32,14 @@ import ctypes
 
 import torch
 
-# kernel launches made by flash_attention_impl (CUDA tensors only)
+# kernel launches made by flash_attention_impl (CUDA tensors only); of them
+# the f32 variant's
 LAUNCHES = 0
+LAUNCHES_F32 = 0
 
-HEAD_DIM = 64  # the only head dim the kernel takes (every dino_vit* name)
+HEAD_DIM = 64  # the kernel's head dim (every dino_vit* name)
 _DTYPES = (torch.bfloat16, torch.float32)
+_STRIDES = ctypes.c_longlong * 12
 
 
 def bias_to_segment_ids(attn_bias: torch.Tensor | None,
@@ -130,23 +137,33 @@ def _kernel_fn():
 def _check_layout(name: str, t: torch.Tensor) -> None:
     """The kernel reads rows of Dh contiguous values with 16-byte loads."""
     step = 16 // t.element_size()
-    strides = [st for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
-    if t.stride(3) != 1 or t.data_ptr() % 16 or any(st % step
-                                                     for st in strides):
+    sb, sh, ss, sd = t.stride()
+    nb, nh, ns, _ = t.shape
+    if (sd != 1 or t.data_ptr() % 16 or (nb > 1 and sb % step)
+            or (nh > 1 and sh % step) or (ns > 1 and ss % step)):
         raise ValueError(
             f"{name}: the kernel needs a contiguous last dim and 16-byte "
             f"aligned rows; got strides {t.stride()} at offset "
             f"{t.data_ptr() % 16} (mod 16)")
 
 
+def pad_head_dim(t: torch.Tensor) -> torch.Tensor:
+    """[..., Dh] -> [..., HEAD_DIM] with zero columns (Dh <= HEAD_DIM)."""
+    return torch.nn.functional.pad(t, (0, HEAD_DIM - t.shape[-1]))
+
+
 def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 scale: float, ids: torch.Tensor | None) -> torch.Tensor:
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_F32
     b, h, s, d = q.shape
-    if d != HEAD_DIM:
+    if d > HEAD_DIM:
         raise ValueError(
-            f"the flash kernel takes head dim {HEAD_DIM} only, got {d}: "
-            "other head dims are ROADMAP.md Queue 2 item 5")
+            f"the flash kernel takes head dims up to {HEAD_DIM}, got {d}: "
+            "larger head dims are ROADMAP.md Queue 2 item 5")
+    if d < HEAD_DIM:
+        out = _flash_cuda(pad_head_dim(q), pad_head_dim(k), pad_head_dim(v),
+                          scale, ids)
+        return out[..., :d]
     if not scale > 0:
         raise ValueError(
             f"the flash kernel takes a positive scale, got {scale}")
@@ -158,20 +175,24 @@ def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if ids is not None:
         ids = ids.to(device=dev, dtype=torch.int32).contiguous()
     # [B, S, H, Dh] storage, returned as the [B, H, S, Dh] view
-    out = torch.empty(b, s, h, d, dtype=q.dtype, device=dev).permute(
-        0, 2, 1, 3)
-    strides = (ctypes.c_longlong * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    out = torch.empty_strided((b, h, s, d), (s * h * d, d, h * d, 1),
+                              dtype=q.dtype, device=dev)
+    strides = _STRIDES(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                       s * h * d, d, h * d)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if ids is None else ids.data_ptr(), strides, b, h, s,
+            float(scale), int(q.dtype == torch.bfloat16))
     fn = _kernel_fn()
-    with torch.cuda.device(dev):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                None if ids is None else ids.data_ptr(), strides, b, h, s,
-                float(scale), int(q.dtype == torch.bfloat16),
-                torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
+    LAUNCHES_F32 += q.dtype == torch.float32
     return out
 
 
