@@ -96,7 +96,29 @@ Phases, each fatal on failure:
      equal to the CPU's update of the card's gradients, and the states
      after the step apart by at most Adam's first step, 2 lr.  No
      hand-written kernel lies on this path (asserted: no launches);
- 10. timings at the main path's shapes: each kernel beside its bound, its
+ 10. SCAN: a synthetic CIFAR-10 in the cifar-10-batches-py pickle format
+     (SCAN_TRAIN + SCAN_TEST images at 32 px in 10 classes, from a numpy
+     seed) through python -m tpu_ac_torch.cli.scan simclr, scan,
+     selflabel and eval at tpu_ac's cifar-10 configs with epochs 1
+     (ResNet-18, SimCLR at 512 pairs, SCAN at 128 with 10 heads and 20
+     neighbours, self-label at 1,000 with threshold 0.99 and class
+     balancing), each stage a process of its own: every epoch's step ms,
+     images/s, the wait on the loader and peak GiB, the stage times, the
+     neighbour accuracy and eval's ACC/NMI/ARI, the artifacts checked;
+     then the moco stage (cli.scan's run_moco, in this process) on
+     RESNET50_IMAGENET from a MoCo-v2-format .pth of a seeded init on a
+     synthetic 224 px ImageFolder (the pretext model must equal the
+     .pth).  In this process: the SimCLR transform's host
+     rate serially, on 8 threads and on the port's 8-process pool; mining
+     at 50,000 x 128,
+     top-21, by CUDA events, 1,000 rows held to a float64 host search; 4
+     profiled steps of each stage (busy share, the ten largest device
+     ops); one f32 step of each kind (SimCLR, SCAN full and head-only,
+     self-label) at full width on the card and on the CPU, held to a
+     float64 CPU run (the SCAN_*_BOUND rules), the states after the step
+     too; the SimCLR step's share of the TF32 and f32 peaks.  No
+     hand-written kernel lies on this path (asserted: no launches);
+ 11. timings at the main path's shapes: each kernel beside its bound, its
      plain version and a library yardstick (cdist; scaled_dot_product_
      attention, bf16 and f32), which the port never calls; for min_dists
      also cuBLAS (torch.matmul) on the same bf16 products without the min
@@ -105,13 +127,15 @@ Phases, each fatal on failure:
 The build's ptxas report (registers, shared memory, spills) is printed for
 every kernel instance.
 Before the card's line come the run's end-to-end numbers as one summary
-JSON; the line before the last is the kernels JSON; the last line is the
+JSON, and the script fails if a process it started is still running; the line before the last is the kernels JSON; the last line is the
 result JSON.  Exits non-zero, printing no result, without CUDA or outside a
 checkout of the repository.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -154,6 +178,26 @@ CKPT_SEED = 1
 def _fatal(msg: str) -> None:
     print(f"chip_smoke: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def _check_no_children() -> None:
+    """Fail if a process that this script started is still running: every
+    phase must stop what it starts (the SCAN stages' worker pools stop
+    their forkserver and resource tracker at close)."""
+    kids = []
+    for task in os.listdir("/proc/self/task"):
+        with open(f"/proc/self/task/{task}/children") as f:
+            kids += f.read().split()
+    left = []
+    for pid in kids:
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                left.append(f"{pid}: " + f.read().replace(b"\0", b" ")
+                            .decode(errors="replace")[:200])
+        except OSError:  # ended since the listing
+            pass
+    if left:
+        _fatal("processes still running at the end: " + "; ".join(left))
 
 
 def _card_line() -> str:
@@ -827,12 +871,15 @@ def _profile_busy(torch, work, wall_s: float, label: str) -> float:
                              ProfilerActivity.CUDA]) as prof:
         work()
         torch.cuda.synchronize()
+    events = prof.key_averages()
     rows = [(e.self_device_time_total / 1e3, e.count, e.key)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            for e in events if e.device_type == DeviceType.CUDA]
     busy_ms = sum(r[0] for r in rows)
+    aten = sum(e.count for e in events if e.key.startswith("aten::"))
     print(f"profile of {label}: device busy {busy_ms:.1f} ms of the "
           f"unprofiled run's {wall_s * 1e3:.1f} ms ("
-          f"{100 * busy_ms / (wall_s * 1e3):.1f}% busy)", flush=True)
+          f"{100 * busy_ms / (wall_s * 1e3):.1f}% busy); {aten} aten ops "
+          f"and {sum(r[1] for r in rows)} device kernels", flush=True)
     for ms, count, key in sorted(rows, reverse=True)[:10]:
         print(f"  {ms:9.2f} ms {100 * ms / busy_ms:5.1f}% x{count:<6d} "
               f"{key[:90]}", flush=True)
@@ -1862,6 +1909,744 @@ def phase_dino(torch, work: str) -> dict:
                 phase_s=phase_s, **prof, **gaps)
 
 
+
+# The SCAN recipe: tpu_ac/configs/{pretext,scan,selflabel}/*cifar-10.yml
+# with epochs 1 (every batch size, width and option as shipped), on a
+# synthetic CIFAR-10 in its real format, cut from 50,000 train and 10,000
+# test images to SCAN_TRAIN and SCAN_TEST for the time limit: the stages
+# are host-bound (the augmentation and the dispatch), and on an H100 the
+# phase took 315 s at 50,000 and 223-245 s at 20,000.  Mining is timed at
+# the full bank, SCAN_BANK_ROWS x 128.
+SCAN_TRAIN = 10_000
+SCAN_TEST = 2_000
+SCAN_BANK_ROWS = 50_000
+SCAN_CLASSES = 10
+SCAN_AUG_IMAGES = 512
+SCAN_EXPS = ("pretext/simclr_cifar-10.yml", "scan/scan_cifar-10.yml",
+             "selflabel/selflabel_cifar-10.yml")
+# MoCo transfer: a synthetic ImageFolder of SCAN_MOCO_WNIDS classes at
+# 256 px (224 px crops), SCAN_MOCO_TRAIN + SCAN_MOCO_VAL images a class
+SCAN_MOCO_WNIDS = 4
+SCAN_MOCO_TRAIN = 32
+SCAN_MOCO_VAL = 8
+SCAN_MOCO_SEED = 1  # not the CLI's init seed: a failed load cannot pass
+# Card against CPU, one f32 step of each kind (TF32 off) at full width,
+# from one state and one batch: SimCLR at 32 pairs, SCAN at 32 anchors +
+# 32 neighbours (full and head-only), self-label at 64 weak + 64 strong.
+# A float64 run on the CPU is the reference, since ResNet-18's f32
+# gradients through train-mode BatchNorm are ill-conditioned (this phase
+# prints the card's and the CPU's gaps to it, relative L2 per parameter).
+# The card is held to the CPU's own error: the loss, each parameter's
+# gradient, the whole gradient and each running statistic no further from
+# float64 than twice the CPU's f32 gap, or
+# SCAN_LOSS_GAP_BOUND, SCAN_GRAD_GAP_BOUND, SCAN_GLOBAL_GRAD_BOUND and
+# SCAN_BN_GAP_BOUND of its norm where the CPU's gap is smaller (the CPU
+# sums BatchNorm's batch reductions in float64, the card's cuDNN in
+# f32).  The per-parameter floor is
+# 1e-2: a BN parameter's gradient is a sum over the batch and the pixels
+# (64 x 4 x 4 terms at layer4, 64 x 32 x 32 at layer1) that nearly
+# cancels, and on an H100 the card's f32 sums sat up to 4.3e-3 from
+# float64 there (layer4.1.bn1.bias) where the CPU's sat at 2.4e-6; the
+# card's conv weight gradients sat up to 1.7e-4 (cuDNN may take another
+# algorithm than a GEMM, which rounds more).  An error of the port on the
+# card (a mask, a BN mode, a missing head) moves whole gradients by O(1).
+# The states after the step: SGD (SimCLR, self-label) moves a parameter
+# by lr x its gradient (+ lr wd p, the same on both), so the states
+# differ by lr x the gradients' gap (+ 1e-6 of |p| for the rounding of
+# p + u); Adam (SCAN) by up to 2 lr where a gradient is near 0 (its first
+# step is about lr sign(g)), as in the DINO phase.
+SCAN_LOSS_GAP_BOUND = 1e-5
+SCAN_GRAD_GAP_BOUND = 1e-2
+SCAN_GLOBAL_GRAD_BOUND = 1e-3
+SCAN_BN_GAP_BOUND = 1e-5
+SCAN_VS_CPU_BATCH = {"simclr": 32, "scan": 32, "selflabel": 64}
+# processes of the CLI: (stage, exp) in the order a user runs them
+SCAN_DEVICE = "cuda"
+
+
+def _make_cifar10(work: str) -> str:
+    """A synthetic CIFAR-10 in the real cifar-10-batches-py/ pickle format
+    (5 train batches + test_batch, uint8 [N, 3072] CHW rows, labels):
+    each class a seeded base colour and a smooth 8 x 8 pattern, each image
+    its own smooth 4 x 4 pattern and pixel noise; made from one numpy
+    seed."""
+    import pickle
+
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    base = rng.integers(40, 216, (SCAN_CLASSES, 1, 1, 3))
+    pattern = np.kron(rng.integers(-40, 41, (SCAN_CLASSES, 8, 8, 1)),
+                      np.ones((1, 4, 4, 3), np.int64))
+    root = os.path.join(work, "scan_data")
+    batches = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(batches)
+
+    def write(name, n):
+        labels = rng.integers(0, SCAN_CLASSES, n)
+        # an image's own smooth 4 x 4 pattern over its class's look, so
+        # that images differ as instances, not only by pixel noise
+        own = np.kron(rng.integers(-40, 41, (n, 4, 4, 3)),
+                      np.ones((1, 8, 8, 1), np.int64))
+        imgs = (base[labels] + pattern[labels] + own
+                + rng.integers(-20, 21, (n, 32, 32, 3)))
+        data = np.clip(imgs, 0, 255).astype(np.uint8).transpose(
+            0, 3, 1, 2).reshape(n, 3072)
+        with open(os.path.join(batches, name), "wb") as f:
+            pickle.dump({b"data": data, b"labels": labels.tolist()}, f)
+
+    for i in range(5):
+        write(f"data_batch_{i + 1}", SCAN_TRAIN // 5)
+    write("test_batch", SCAN_TEST)
+    return root
+
+
+def _make_moco_tree(work: str) -> tuple[str, str]:
+    """<root>/{train,val}/<wnid>/*.png at 256 px and a subset file."""
+    import numpy as np
+    from PIL import Image
+
+    root = os.path.join(work, "moco_data")
+    rng = np.random.default_rng(1)
+    wnids = [f"n0100000{i}" for i in range(SCAN_MOCO_WNIDS)]
+    for split, n in (("train", SCAN_MOCO_TRAIN), ("val", SCAN_MOCO_VAL)):
+        for ci, wnid in enumerate(wnids):
+            d = os.path.join(root, split, wnid)
+            os.makedirs(d)
+            for i in range(n):
+                low = rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)
+                low[..., ci % 3] = 255 - 40 * (ci // 3)
+                arr = np.asarray(Image.fromarray(low).resize(
+                    (256, 256), Image.BICUBIC), np.int16)
+                arr = arr + rng.integers(-12, 13, arr.shape, dtype=np.int16)
+                Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8)).save(
+                    os.path.join(d, f"{i:03d}.png"))
+    subset = os.path.join(root, "subset.txt")
+    with open(subset, "w") as f:
+        f.writelines(f"{w} class_{i}\n" for i, w in enumerate(wnids))
+    return root, subset
+
+
+def _scan_cli(stage: str, env: str, exp: str, timeout: int = 600) -> dict:
+    """python -m tpu_ac_torch.cli.scan STAGE as a user runs it, a process
+    of its own; its scan_epoch, scan_mining and scan_stage lines."""
+    cmd = [sys.executable, "-m", "tpu_ac_torch.cli.scan", stage,
+           "--config_env", env, "--config_exp", exp, "--device", SCAN_DEVICE]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+                         capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if run.returncode:
+        print(run.stdout[-3000:], run.stderr[-3000:], sep="\n",
+              file=sys.stderr)
+        _fatal(f"python -m tpu_ac_torch.cli.scan {stage} exited "
+               f"{run.returncode}")
+    return _scan_lines(stage, run.stdout, wall, "as a process")
+
+
+def _scan_lines(stage: str, stdout: str, wall: float, how: str) -> dict:
+    """A stage's scan_epoch, scan_mining and scan_stage lines, printed
+    short."""
+    out = {"epochs": [], "mining": [], "stage": None, "wall_s": wall}
+    for line in stdout.splitlines():
+        tag, _, rest = line.partition(" ")
+        if tag == "scan_epoch":
+            out["epochs"].append(json.loads(rest))
+        elif tag == "scan_mining":
+            out["mining"].append(json.loads(rest))
+        elif tag == "scan_stage":
+            out["stage"] = json.loads(rest)
+    if out["stage"] is None:
+        _fatal(f"cli.scan {stage}: no scan_stage line in\n"
+               f"{stdout[-2000:]}")
+    for e in out["epochs"]:
+        print(f"cli.scan {stage} epoch {e['epoch']} ({e['device']}): "
+              f"{e['steps']} steps of {e['images_per_step']:.0f} images, "
+              f"{e['step_ms']:.2f} ms a step (host clock "
+              f"{e['wall_step_ms']:.2f}), {e['images_s']:.1f} images/s, "
+              f"loader wait {e['data_wait_ms']:.2f} ms a step, peak "
+              f"{e['peak_gib'] or 0:.2f} GiB", flush=True)
+    for m in out["mining"]:
+        print(f"cli.scan {stage} mining ({m['stage']}): {m['rows']} x "
+              f"{m['dim']}, top-{m['topk'] + 1}, {m['ms']:.2f} ms (host "
+              f"clock, the index copy included), neighbour accuracy "
+              f"{m['accuracy']:.4f}", flush=True)
+    print(f"cli.scan {stage}: {wall:.1f} s {how} (set-up included), "
+          f"stage {json.dumps(out['stage'])}", flush=True)
+    return out
+
+
+def _scan_moco(torch, work: str) -> dict:
+    """The moco stage on RESNET50_IMAGENET at 224 px from a MoCo-v2-format
+    .pth of a seeded init (module.encoder_q.* keys, fc.0/fc.2 for the
+    head, the key encoder, the queue and a BN counter that the loader
+    drops); the pretext model it saves must equal the .pth."""
+    import numpy as np
+
+    from tpu_ac_torch.config import CONFIG_DIR
+    from tpu_ac_torch.models.resnet_cifar import RESNET50_IMAGENET
+    from tpu_ac_torch.train import scan as ts
+    from tpu_ac_torch.utils import latest_checkpoint, restore_checkpoint
+
+    root, subset = _make_moco_tree(work)
+    mcfg = ts.SCANModelConfig(backbone=RESNET50_IMAGENET, feature_dim=128,
+                              n_clusters=SCAN_MOCO_WNIDS)
+    p, bn = ts.init_contrastive_model(SCAN_MOCO_SEED, mcfg, "cpu")
+    sd = {}
+    for k, v in {**p, **bn}.items():
+        name = ("fc." + k[len("contrastive_head."):]
+                if k.startswith("contrastive_head.") else k)
+        sd["module.encoder_q." + name] = v
+    sd["module.encoder_q.bn1.num_batches_tracked"] = torch.tensor(7)
+    sd["module.encoder_k.conv1.weight"] = torch.zeros_like(p["conv1.weight"])
+    sd["module.queue"] = torch.zeros(128, 16)
+    pth = os.path.join(work, "moco_v2_seeded.pth.tar")
+    torch.save({"state_dict": sd, "epoch": 800, "arch": "resnet50"}, pth)
+    with open(os.path.join(CONFIG_DIR, "pretext",
+                           "moco_imagenet_50.yml")) as f:
+        text = f.read()
+    exp = os.path.join(work, "moco_exp.yml")
+    with open(exp, "w") as f:
+        f.write(text.replace("\nnum_classes:", "\n# recipe num_classes:")
+                .replace("\nmoco_checkpoint:", "\n# moco_checkpoint:")
+                + f"num_classes: {SCAN_MOCO_WNIDS}\nmoco_checkpoint: {pth}\n"
+                f"subset_file: {subset}\n")
+    out_root = os.path.join(work, "moco_out")
+    env = os.path.join(work, "moco_env.yml")
+    with open(env, "w") as f:
+        f.write(f"root_dir: {out_root}\ndata_root: {root}\n")
+    # in this process (the stage function cli.scan's main calls): a
+    # process's start costs the phase more than the stage's own work
+    from tpu_ac_torch.cli import scan as cli
+    from tpu_ac_torch.config import create_config
+
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        cli.run_moco(create_config(env, exp), SCAN_DEVICE)
+    run = _scan_lines("moco", text.getvalue(), time.perf_counter() - t0,
+                      "in this process")
+    base = os.path.join(out_root, "imagenet_50")
+    q, qbn = ts.init_contrastive_model(0, mcfg, "cpu")
+    got, _ = restore_checkpoint(latest_checkpoint(
+        os.path.join(base, "pretext"), "model"), {"params": q, "bn": qbn})
+    wrong = [k for k, v in {**p, **bn}.items()
+             if not torch.equal(v, {**got["params"], **got["bn"]}[k])]
+    n_train = SCAN_MOCO_WNIDS * SCAN_MOCO_TRAIN
+    n_val = SCAN_MOCO_WNIDS * SCAN_MOCO_VAL
+    tr = np.load(os.path.join(base, "top50-train-neighbors.npy"))
+    va = np.load(os.path.join(base, "top5-val-neighbors.npy"))
+    if wrong or tr.shape != (n_train, 51) or va.shape != (n_val, 6):
+        _fatal(f"cli.scan moco: {len(wrong)} loaded tensors differ from the "
+               f".pth ({wrong[:3]}); neighbours {tr.shape}, {va.shape}")
+    print(f"cli.scan moco: the pretext model equals the .pth in all "
+          f"{len(p) + len(bn)} tensors (the 3 extra keys dropped); "
+          f"{n_train} + {n_val} images at 224 px mined", flush=True)
+    return dict(stage_s=run["stage"]["seconds"], cli_s=run["wall_s"],
+                mining_ms=[m["ms"] for m in run["mining"]],
+                neighbor_accuracy=run["stage"]["neighbor_accuracy"])
+
+
+def _cifar_resnet_flops(cfg, size: int) -> float:
+    """Forward FLOPs of one image through a basic-block CIFAR ResNet (2 a
+    multiply-add): every conv; BN, the pool and the elementwise ops not
+    counted."""
+    hw, in_c = size, 3
+    flops = 2.0 * in_c * cfg.widths[0] * 9 * hw * hw
+    in_c = cfg.widths[0]
+    for li, (n, w) in enumerate(zip(cfg.block_counts, cfg.widths)):
+        for b in range(n):
+            stride = 2 if (li > 0 and b == 0) else 1
+            hw //= stride
+            flops += 2 * hw * hw * (in_c + w) * w * 9
+            if in_c != w or stride == 2:
+                flops += 2 * hw * hw * in_c * w
+            in_c = w
+    return flops
+
+
+def _scan_card_vs_cpu(torch, ds, cfg) -> dict:
+    """One f32 step of each kind (TF32 off) at full width on the CPU and on
+    the card from one state and one batch (augmented on the host)."""
+    from tpu_ac_torch.cli import scan as cli
+    from tpu_ac_torch.data.augment import (
+        SimCLRAugmentation,
+        StrongAugmentation,
+        WeakAugmentation,
+    )
+    from tpu_ac_torch.data.prefetch import ParallelAugPool
+    from tpu_ac_torch.device import precision_scope
+    from tpu_ac_torch.train import optim
+    from tpu_ac_torch.train import scan as ts
+    from tpu_ac_torch.utils import latest_checkpoint, restore_checkpoint
+
+    mcfg = cli._model_config(cfg)
+    one = cli._single_head(cfg)
+    pool = ParallelAugPool(8)
+    sim = SimCLRAugmentation(32, seed=0)
+
+    def views(aug, n, stream, first=0):
+        return torch.from_numpy(pool.stack(aug, ds.get_pil,
+                                           range(first, first + n),
+                                           stream=stream))
+
+    def restored(name, template):
+        ckpt = latest_checkpoint(os.path.join(cfg.root_dir, cfg.db, name),
+                                 "model")
+        return restore_checkpoint(ckpt, template)
+
+    # the states: SimCLR from the seeded init; SCAN from the pretext
+    # model as run_scan loads it; self-label from the SCAN model's best
+    # head as run_selflabel loads it
+    p, bn = ts.init_contrastive_model(0, mcfg, "cpu")
+    cp, cbn = ts.init_clustering_model(0, mcfg, "cpu")
+    pre, _ = restored("pretext", {"params": p, "bn": bn})
+    cp = {**cp, **{k: v for k, v in pre["params"].items()
+                   if not k.startswith("contrastive_head")}}
+    scan_params, scan_bn = cp, dict(pre["bn"])
+    sc, meta = restored("scan", {"params": cp, "bn": cbn})
+    best = meta["extra"]["best_head"]
+    sl = {k: v for k, v in sc["params"].items()
+          if not k.startswith("cluster_head")}
+    sl["cluster_head.0.weight"] = sc["params"][f"cluster_head.{best}.weight"]
+    sl["cluster_head.0.bias"] = sc["params"][f"cluster_head.{best}.bias"]
+    bsz = SCAN_VS_CPU_BATCH
+    # self-label's mask: a row whose confidence lies within the two
+    # devices' noise of the threshold could flip it, so the batch is the
+    # first of 8 candidates whose rows all lie 1e-4 or more from it (on the
+    # CPU), with at least one row over it
+    n_sl, thr = bsz["selflabel"], cfg.confidence_threshold
+    for first in range(0, 8 * n_sl, n_sl):
+        weak = views(WeakAugmentation(32, seed=0), n_sl, "w", first)
+        with torch.no_grad():
+            conf = torch.softmax(ts.clustering_forward(
+                sl, sc["bn"], weak, one, train=True)[0][0], 1).amax(1)
+        if (conf - thr).abs().min() >= 1e-4 and (conf > thr).any():
+            break
+    else:
+        _fatal("scan card vs CPU, selflabel: no candidate batch has its "
+               f"confidences 1e-4 or more from the threshold {thr}")
+    strong = views(StrongAugmentation(32, seed=0), n_sl, "s", first)
+    lr_scan = cfg.scan_lr
+
+    def sim_opt():
+        return optim.chain(optim.add_decayed_weights(cfg.weight_decay),
+                           optim.sgd(cfg.lr, momentum=0.9))
+
+    anchors = views(sim, bsz["scan"], "a")
+    neighbours = views(sim, bsz["scan"], "n")
+    # name: (optimizer, lr, Adam?, loss_and_grads, batch, start params, bn)
+    cases = {
+        "simclr": (sim_opt(), cfg.lr, False,
+                   lambda s, a, b: ts.simclr_loss_and_grads(
+                       s, a, b, mcfg, cfg.temperature),
+                   (views(sim, bsz["simclr"], "i"),
+                    views(sim, bsz["simclr"], "j")), p, bn),
+        "scan": (optim.adam(lr_scan), lr_scan, True,
+                 lambda s, a, b: ts.scan_loss_and_grads(
+                     s, a, b, mcfg, cfg.entropy_weight),
+                 (anchors, neighbours), scan_params, scan_bn),
+        "scan_head_only": (optim.adam(lr_scan), lr_scan, True,
+                           lambda s, a, b: ts.scan_loss_and_grads(
+                               s, a, b, mcfg, cfg.entropy_weight, True),
+                           (anchors, neighbours), scan_params, scan_bn),
+        "selflabel": (optim.sgd(cfg.selflabel_lr, momentum=0.9),
+                      cfg.selflabel_lr, False,
+                      lambda s, a, b: ts.selflabel_loss_and_grads(
+                          s, a, b, one, cfg.confidence_threshold,
+                          cfg.apply_class_balancing),
+                      (weak, strong), sl, sc["bn"]),
+    }
+    pool.close()
+    out = {}
+    def norm(x) -> float:
+        return float(torch.linalg.vector_norm(x.detach().cpu().double()))
+
+    def held(card, cpu, ref, floor) -> float:
+        """The card's gap to float64 over its bound (<= 1 passes)."""
+        bound = max(2 * norm(cpu - ref), floor * norm(ref), 1e-30)
+        return norm(card.cpu().double() - ref) / bound
+
+    with precision_scope("highest"):
+        for name, (opt, lr, is_adam, lg, batch, params, bns) in \
+                cases.items():
+            state = ts.init_train_state(params, bns, opt)
+            frozen = ((lambda k: not k.startswith("cluster_head"))
+                      if name == "scan_head_only" else None)
+            card = ts.scan_state_from_numpy(ts.scan_state_to_numpy(state),
+                                            opt, SCAN_DEVICE)
+            ref = ts.init_train_state(
+                {k: v.double() for k, v in params.items()},
+                {k: v.double() for k, v in bns.items()}, opt)
+            t0 = time.perf_counter()
+            loss_c, aux_c, g_c = lg(state, *batch)
+            cpu_s = time.perf_counter() - t0
+            loss_r, aux_r, g_r = lg(ref, *(x.double() for x in batch))
+            loss_g, aux_g, g_g = lg(card, *(x.to(SCAN_DEVICE) for x in batch))
+            bn_c, bn_r, bn_g = (a[0] if isinstance(a, tuple) else a
+                                for a in (aux_c, aux_r, aux_g))
+            loss_gap = abs(float(loss_g) - float(loss_r)) / abs(float(loss_r))
+            loss_over = held(loss_g.double(), loss_c.double(), loss_r,
+                             SCAN_LOSS_GAP_BOUND)
+            gaps = {k: held(g_g[k], g_c[k], v, SCAN_GRAD_GAP_BOUND)
+                    for k, v in g_r.items() if norm(v) > 0}
+            worst = max(gaps, key=gaps.get)
+            card_rel = norm(g_g[worst].cpu().double() - g_r[worst]) / norm(
+                g_r[worst])
+            cpu_rel = norm(g_c[worst].double() - g_r[worst]) / norm(
+                g_r[worst])
+            bn_over = max(held(bn_g[k], bn_c[k], v, SCAN_BN_GAP_BOUND)
+                          for k, v in bn_r.items())
+            ref_sq = sum(norm(v) ** 2 for v in g_r.values())
+            whole, whole_cpu = (math.sqrt(sum(
+                norm(g[k].cpu().double() - v) ** 2
+                for k, v in g_r.items()) / ref_sq) for g in (g_g, g_c))
+            if whole > max(2 * whole_cpu, SCAN_GLOBAL_GRAD_BOUND):
+                _fatal(f"scan card vs CPU, {name}: the whole gradient "
+                       f"{whole:.3e} from float64, the CPU's {whole_cpu:.3e} "
+                       f"(bound: twice that or {SCAN_GLOBAL_GRAD_BOUND})")
+            if max(loss_over, gaps[worst], bn_over) > 1:
+                _fatal(f"scan card vs CPU, {name}: loss {float(loss_g)}, "
+                       f"CPU {float(loss_c)}, float64 {float(loss_r)} "
+                       f"({loss_over:.3f} of its bound); gradient of "
+                       f"{worst} at {gaps[worst]:.3f} of its bound (card "
+                       f"{card_rel:.3e} from float64, CPU {cpu_rel:.3e}); "
+                       f"BN statistics at {bn_over:.3f} of their bound")
+            new_c = ts.apply_gradients(state, g_c, bn_c, opt, frozen)
+            new_g = ts.apply_gradients(card, g_g, bn_g, opt, frozen)
+            # the CPU's update of the card's gradients: the card's update
+            new_x = ts.apply_gradients(
+                state, {k: v.cpu() for k, v in g_g.items()},
+                {k: v.cpu() for k, v in bn_g.items()}, opt, frozen)
+            upd_gap = state_gap = 0.0
+            for k in new_c.params:
+                a = new_g.params[k].cpu().double()
+                x = new_x.params[k].double()
+                c = new_c.params[k].double()
+                upd_gap = max(upd_gap, float(((a - x).abs()
+                                              / (x.abs() + lr)).max()))
+                if is_adam:
+                    # Adam's first step, about lr sign(g): 2 lr apart
+                    gap, bound = float((a - c).abs().max()), 2 * lr
+                else:
+                    gap = norm(a - c)
+                    bound = (lr * (1 + 1e-3) * norm(g_g[k].cpu() - g_c[k])
+                             + 1e-6 * norm(c))
+                if gap > bound + 1e-12:
+                    _fatal(f"scan card vs CPU, {name}: after the step {k} "
+                           f"is {gap:.3e} apart (bound {bound:.3e})")
+                state_gap = max(state_gap, gap / max(bound, 1e-30))
+            if upd_gap > 1e-5:
+                _fatal(f"scan card vs CPU, {name}: the card's update "
+                       f"{upd_gap:.3e} from the CPU's update of the same "
+                       f"gradients (bound 1e-5 of |value| + lr)")
+            row = dict(loss_gap=loss_gap, grad_over_bound=gaps[worst],
+                       grad_gap=card_rel, cpu_grad_gap=cpu_rel,
+                       whole_grad_gap=whole,
+                       bn_over_bound=bn_over, upd_gap=upd_gap,
+                       state_gap_over_bound=state_gap, cpu_s=cpu_s)
+            extra = ""
+            if name == "selflabel":
+                with torch.no_grad():
+                    probs = [torch.softmax(ts.clustering_forward(
+                        s.params, s.bn_state, weak.to(d), one,
+                        train=True)[0][0], 1).amax(1).cpu()
+                        for s, d in ((state, "cpu"), (card, SCAN_DEVICE))]
+                masks = [p > thr for p in probs]
+                if not torch.equal(masks[0], masks[1]) or not masks[0].any():
+                    _fatal(f"scan card vs CPU, selflabel: confident rows "
+                           f"{int(masks[0].sum())} on the CPU, "
+                           f"{int(masks[1].sum())} on the card (the masks "
+                           "must be equal and not empty)")
+                row["confident"] = int(masks[0].sum())
+                row["threshold_margin"] = float((probs[0] - thr).abs().min())
+                extra = (f"; images {first}-{first + n_sl - 1}: "
+                         f"{row['confident']} of {n_sl} rows over {thr} on "
+                         f"both, the nearest {row['threshold_margin']:.3e} "
+                         "from it")
+            print(f"scan card vs CPU ({name}, f32, TF32 off, full width; "
+                  f"float64 on the CPU the reference): loss "
+                  f"{float(loss_g):.6f}, CPU {float(loss_c):.6f}, float64 "
+                  f"{float(loss_r):.6f} (card gap {loss_gap:.3e}, "
+                  f"{loss_over:.3f} of its bound); the worst gradient "
+                  f"{worst} at {gaps[worst]:.3f} of its bound (card "
+                  f"{card_rel:.3e} from float64, CPU {cpu_rel:.3e}; "
+                  f"bound: twice the CPU's gap or {SCAN_GRAD_GAP_BOUND}); "
+                  f"the whole gradient {whole:.3e} from float64 (CPU "
+                  f"{whole_cpu:.3e}); BN statistics at "
+                  f"{bn_over:.3f} of their bound; update "
+                  f"vs the CPU's update of the card's gradients "
+                  f"{upd_gap:.3e}; states after the step at "
+                  f"{state_gap:.3f} of their bound; CPU {cpu_s:.1f} s"
+                  f"{extra}", flush=True)
+            out[name] = row
+    return out
+
+
+def _scan_aug_rates(ds) -> dict:
+    """The SimCLR transform's host rate on SCAN_AUG_IMAGES images, us an
+    image: one thread, 8 threads (tpu_ac's pool), and the port's pool of
+    8 worker processes (warm); the three must give the same arrays."""
+    import random
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from tpu_ac_torch.data.augment import SimCLRAugmentation
+    from tpu_ac_torch.data.prefetch import ParallelAugPool
+
+    aug, n = SimCLRAugmentation(32, seed=0), SCAN_AUG_IMAGES
+
+    def one(i):
+        return aug(ds.get_pil(i), rng=random.Random(f"0/r/0/{i}"))
+
+    out, arrays = {}, []
+    t0 = time.perf_counter()
+    arrays.append(np.stack([one(i) for i in range(n)]))
+    out["serial"] = time.perf_counter() - t0
+    with ThreadPoolExecutor(8) as threads:
+        list(threads.map(one, range(64)))
+        t0 = time.perf_counter()
+        arrays.append(np.stack(list(threads.map(one, range(n)))))
+        out["8 threads"] = time.perf_counter() - t0
+    pool = ParallelAugPool(8, seed=0)
+    try:
+        pool.stack(aug, ds.get_pil, range(64), stream="r")
+        t0 = time.perf_counter()
+        arrays.append(pool.stack(aug, ds.get_pil, range(n), stream="r"))
+        out["8 processes"] = time.perf_counter() - t0
+    finally:
+        pool.close()
+    if not all(np.array_equal(a, arrays[0]) for a in arrays[1:]):
+        _fatal("scan aug: the thread and process pools' arrays differ from "
+               "the serial loop's")
+    us = {k: 1e6 * v / n for k, v in out.items()}
+    print(f"scan aug (SimCLR transform, {n} images at 32 px, "
+          f"{os.cpu_count()} CPUs), us an image: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in us.items())
+          + "; the same arrays", flush=True)
+    return us
+
+
+def _scan_mining(torch, k: int) -> dict:
+    """Neighbour mining at the recipe's bank, SCAN_BANK_ROWS x 128 unit
+    rows (seeded on the card), top-k: ``knn_ip`` timed by CUDA events, and
+    ``MemoryBank.mine_nearest_neighbors``'s lists for 1,000 sampled rows
+    held to a float64 host search: every pick within 1e-5 of the k-th best
+    score (ties), in descending order within 1e-5, each row itself
+    first."""
+    import numpy as np
+
+    from tpu_ac_torch.ops.distances import knn_ip
+    from tpu_ac_torch.train import scan as ts
+
+    gen = torch.Generator(device=SCAN_DEVICE).manual_seed(0)
+    feats = torch.randn(SCAN_BANK_ROWS, 128, device=SCAN_DEVICE,
+                        generator=gen)
+    feats /= torch.linalg.vector_norm(feats, dim=1, keepdim=True)
+    bank = ts.MemoryBank(SCAN_BANK_ROWS, 128, SCAN_CLASSES,
+                         device=SCAN_DEVICE)
+    bank.update(feats, np.arange(SCAN_BANK_ROWS) % SCAN_CLASSES)
+    ms, _host = _time_ms(lambda: knn_ip(bank.features, bank.features, k), 3)
+    idx = bank.mine_nearest_neighbors(k - 1, calculate_accuracy=False)
+    host = feats.cpu().double()
+    rows = np.random.default_rng(0).choice(SCAN_BANK_ROWS, 1000,
+                                           replace=False)
+    sims = (host[rows] @ host.T).numpy()
+    kth = -np.sort(-sims, axis=1)[:, k - 1]
+    picked = np.take_along_axis(sims, idx[rows].astype(np.int64), axis=1)
+    if not (np.all(picked >= kth[:, None] - 1e-5)
+            and np.all(np.diff(picked, axis=1) <= 1e-5)
+            and np.array_equal(idx[rows, 0], rows)):
+        _fatal("scan mining: a mined list holds a row outside the float64 "
+               f"top-{k} (worst {float((kth[:, None] - picked).max()):.3e} "
+               "below the k-th score), out of order, or not led by itself")
+    n, d = SCAN_BANK_ROWS, 128
+    bound_ms = 1e3 * max(2.0 * n * n * d / PEAK_F32_FLOPS,
+                         (n * d * 4 + n * k * 8) / PEAK_HBM_BYTES)
+    print(f"scan mining: {n} x {d}, top-{k}: {ms:.2f} ms (CUDA events) "
+          f"against a {bound_ms:.2f} ms bound (operations: the f32 product "
+          "at the f32 peak); 1,000 sampled rows match a float64 host search",
+          flush=True)
+    return dict(ms=ms, bound_ms=bound_ms)
+
+
+def _scan_profile(torch, ds, cfg) -> dict:
+    """SimCLR, SCAN and self-label steps in this process, fed as cli.scan
+    feeds them (augmentation pool, one batch ahead, pinned uploads): 2
+    warm-up steps, 4 timed, 4 under torch.profiler, each stage's busy
+    share."""
+    import numpy as np
+
+    from tpu_ac_torch.cli import scan as cli
+    from tpu_ac_torch.data.augment import (
+        SimCLRAugmentation,
+        StrongAugmentation,
+        WeakAugmentation,
+    )
+    from tpu_ac_torch.data.prefetch import ParallelAugPool, to_device
+    from tpu_ac_torch.device import precision_scope
+    from tpu_ac_torch.train import optim
+    from tpu_ac_torch.train import scan as ts
+
+    mcfg, one = cli._model_config(cfg), cli._single_head(cfg)
+    put = to_device(SCAN_DEVICE)
+    pool = ParallelAugPool(8)
+    p, bn = ts.init_contrastive_model(0, mcfg, SCAN_DEVICE)
+    sim_opt = optim.chain(optim.add_decayed_weights(cfg.weight_decay),
+                          optim.sgd(cfg.lr, momentum=0.9))
+    cp, cbn = ts.init_clustering_model(0, one, SCAN_DEVICE)
+    sl_opt = optim.sgd(cfg.selflabel_lr, momentum=0.9)
+    hp, hbn = ts.init_clustering_model(0, mcfg, SCAN_DEVICE)
+    scan_opt = optim.adam(cfg.scan_lr)
+    stages = {
+        "simclr": (ts.init_train_state(p, bn, sim_opt),
+                   ts.make_simclr_step(mcfg, sim_opt, cfg.temperature),
+                   SimCLRAugmentation(32, seed=0),
+                   SimCLRAugmentation(32, seed=0), cfg.simclr_batch),
+        "scan": (ts.init_train_state(hp, hbn, scan_opt),
+                 ts.make_scan_step(mcfg, scan_opt, cfg.entropy_weight),
+                 SimCLRAugmentation(32, seed=0),
+                 SimCLRAugmentation(32, seed=0), cfg.scan_batch),
+        "selflabel": (ts.init_train_state(cp, cbn, sl_opt),
+                      ts.make_selflabel_step(
+                          one, sl_opt, cfg.confidence_threshold,
+                          cfg.apply_class_balancing),
+                      WeakAugmentation(32, seed=0),
+                      StrongAugmentation(32, seed=0), cfg.selflabel_batch),
+    }
+    out = {}
+    with precision_scope("default"):
+        for name, (state, step, aug_a, aug_b, bs) in stages.items():
+            order = np.random.default_rng(0).permutation(len(ds))
+
+            def run(n, first=0):
+                nonlocal state
+
+                def thunks():
+                    for i in range(first, first + n):
+                        idxs = order[i * bs:(i + 1) * bs]
+                        yield (lambda idxs=idxs, i=i: (
+                            put(pool.stack(aug_a, ds.get_pil, idxs, epoch=i,
+                                           stream="a")),
+                            put(pool.stack(aug_b, ds.get_pil, idxs, epoch=i,
+                                           stream="b"))))
+                for a, b in pool.lookahead(thunks()):
+                    state, out = step(state, a, b)
+                torch.cuda.synchronize()
+                loss = float(out["total"] if isinstance(out, dict) else out)
+                if not math.isfinite(loss):
+                    _fatal(f"scan profile {name}: loss {loss}")
+
+            run(2)
+            t0 = time.perf_counter()
+            run(4, 2)
+            wall_s = time.perf_counter() - t0
+            busy = _profile_busy(torch, lambda: run(4, 6), wall_s,
+                                 f"4 {name} steps (batch {bs}, fed by the "
+                                 "augmentation pool)")
+            out[name] = dict(step_ms=wall_s * 1e3 / 4, busy_pct=busy)
+    pool.close()
+    return out
+
+
+def phase_scan(torch, work: str) -> dict:
+    """SCAN at the CIFAR-10 recipe through cli.scan (see the module
+    docstring, phase 10)."""
+    import numpy as np
+
+    from tpu_ac_torch.config import CONFIG_DIR, Config, load_yaml, merge
+    from tpu_ac_torch.data.classification import load_cifar10
+    from tpu_ac_torch.models.resnet_cifar import RESNET18_CIFAR
+    from tpu_ac_torch.utils import latest_checkpoint
+
+    t_start = time.perf_counter()
+    data = _make_cifar10(work)
+    out_root = os.path.join(work, "scan_out")
+    env = os.path.join(work, "scan_env.yml")
+    with open(env, "w") as f:
+        f.write(f"root_dir: {out_root}\ndata_root: {data}\n")
+    exps, merged = {}, Config()
+    for rel in SCAN_EXPS:
+        with open(os.path.join(CONFIG_DIR, rel)) as f:
+            text = f.read()
+        exp = os.path.join(work, "scan_" + os.path.basename(rel))
+        with open(exp, "w") as f:
+            f.write(text.replace("\nepochs:", "\n# recipe epochs:")
+                    + "epochs: 1\n")
+        exps[rel.split("/")[0]] = exp
+        merged = merge(merged, load_yaml(exp))
+    print(f"scan: synthetic CIFAR-10 ({SCAN_TRAIN} train, {SCAN_TEST} test, "
+          f"{SCAN_CLASSES} classes, 32 px) in {time.perf_counter() - t_start:.1f}"
+          f" s; the recipe {json.dumps(merged)}", flush=True)
+    runs = {"simclr": _scan_cli("simclr", env, exps["pretext"])}
+    base = os.path.join(out_root, "cifar-10")
+    nbrs = np.load(os.path.join(base, "top20-train-neighbors.npy"))
+    if not (nbrs.shape == (SCAN_TRAIN, 21) and nbrs.dtype == np.int32
+            and nbrs.min() >= 0 and nbrs.max() < SCAN_TRAIN):
+        _fatal(f"cli.scan simclr: neighbours {nbrs.shape} {nbrs.dtype}, "
+               f"range [{nbrs.min()}, {nbrs.max()}]")
+    runs["scan"] = _scan_cli("scan", env, exps["scan"])
+    runs["selflabel"] = _scan_cli("selflabel", env, exps["selflabel"])
+    runs["eval"] = _scan_cli("eval", env, exps["selflabel"])
+    for stage in ("pretext", "scan", "selflabel"):
+        if latest_checkpoint(os.path.join(base, stage), "model") is None:
+            _fatal(f"cli.scan: no {stage} model checkpoint")
+    ev = runs["eval"]["stage"]
+    if not all(0.0 <= ev[k] <= 1.0 for k in ("ACC", "NMI", "ARI",
+                                              "ACC Top-5")):
+        _fatal(f"cli.scan eval: scores {ev}")
+    moco = _scan_moco(torch, work)
+
+    ds = load_cifar10(data, "train")
+    cfg = Config(merged, root_dir=out_root, db="cifar-10",
+                 simclr_batch=load_yaml(exps["pretext"]).batch_size,
+                 scan_batch=load_yaml(exps["scan"]).batch_size,
+                 selflabel_batch=load_yaml(exps["selflabel"]).batch_size)
+    cfg["lr"] = load_yaml(exps["pretext"]).lr
+    aug_us = _scan_aug_rates(ds)
+    mined = _scan_mining(torch, merged.num_neighbors + 1)
+    prof = _scan_profile(torch, ds, cfg)
+    gaps = _scan_card_vs_cpu(torch, ds, cfg)
+
+    e = runs["simclr"]["epochs"][0]
+    flops = 3 * _cifar_resnet_flops(RESNET18_CIFAR, 32) * 2 * cfg.simclr_batch
+    step_s = e["step_ms"] / 1e3
+    print(f"scan simclr step: {flops / 1e12:.3f} TFLOP of convs a step "
+          f"(forward + 2x backward, {2 * cfg.simclr_batch} images) = "
+          f"{100 * flops / step_s / PEAK_TF32_FLOPS:.2f}% of the dense TF32 "
+          f"peak, {100 * flops / step_s / PEAK_F32_FLOPS:.2f}% of the f32 "
+          "peak", flush=True)
+    mining = runs["simclr"]["mining"][0]
+    phase_s = time.perf_counter() - t_start
+    print(f"scan phase: {phase_s:.1f} s", flush=True)
+    return dict(
+        stage_s={s: r["stage"]["seconds"] for s, r in runs.items()},
+        cli_s={s: r["wall_s"] for s, r in runs.items()},
+        step_ms={s: r["epochs"][0]["step_ms"] for s, r in runs.items()
+                 if r["epochs"]},
+        images_s={s: r["epochs"][0]["images_s"] for s, r in runs.items()
+                  if r["epochs"]},
+        loader_wait_ms={s: r["epochs"][0]["data_wait_ms"]
+                        for s, r in runs.items() if r["epochs"]},
+        peak_gib={s: r["epochs"][0]["peak_gib"] for s, r in runs.items()
+                  if r["epochs"]},
+        simclr_tflop=flops / 1e12,
+        simclr_tf32_peak_pct=100 * flops / step_s / PEAK_TF32_FLOPS,
+        mining_ms=mined["ms"], mining_bound_ms=mined["bound_ms"],
+        mining_cli_ms=mining["ms"], neighbor_accuracy=mining["accuracy"],
+        eval={k: ev[k] for k in ("ACC", "NMI", "ARI", "ACC Top-5")},
+        aug_us=aug_us, moco=moco, profile=prof, card_vs_cpu=gaps,
+        phase_s=phase_s)
+
+
+def _round6(tree):
+    """``tree`` with every float at 6 significant digits."""
+    if isinstance(tree, dict):
+        return {k: _round6(v) for k, v in tree.items()}
+    return float(f"{tree:.6g}") if isinstance(tree, float) else tree
+
+
 def _print_ptxas(name: str, log: str) -> None:
     """One line per kernel instance of nvcc's ptxas report: registers,
     shared memory, spills; and ptxas's performance warnings."""
@@ -1948,6 +2733,12 @@ def main() -> None:
         dino_launches = dist.LAUNCHES + dist.WINDOW_LAUNCHES + attn.LAUNCHES
         if dino_launches:
             _fatal(f"the dino path launched {dino_launches} kernels of the "
+                   "clustering path")
+        dist.LAUNCHES = dist.WINDOW_LAUNCHES = attn.LAUNCHES = 0
+        scan_run = phase_scan(torch, work)
+        scan_launches = dist.LAUNCHES + dist.WINDOW_LAUNCHES + attn.LAUNCHES
+        if scan_launches:
+            _fatal(f"the scan path launched {scan_launches} kernels of the "
                    "clustering path")
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2047,10 +2838,12 @@ def main() -> None:
                    for name, r in zoo_run["rows"].items()}},
         "dino": {k: (float(f"{v:.6g}") if isinstance(v, float) else v)
                  for k, v in dino_run.items()},
+        "scan": _round6(scan_run),
         "mesh": {"sweep_img_s": r4(mesh_run["sweep_img_s"]),
                  "window_ms": r4(window_timing["ms"]),
                  "w_gap_over_bound": float(
                      f"{mesh_run['w_gap_over_bound']:.4g}")}}}))
+    _check_no_children()
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

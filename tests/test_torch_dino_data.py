@@ -4,6 +4,7 @@ and the crop prefetcher (bit-equal crops at 0 and 4 workers), LARS, the
 checkpoint format (either package reads the other's), seeding, logging
 and profiling.  Tolerances: equal, except LARS (f32, 1e-6)."""
 
+import functools
 import json
 import random
 
@@ -167,13 +168,19 @@ def test_base_prefetcher_and_parallel_decode_equal(folder):
             tpre.parallel_decode(list(range(8)), load, workers), want)
 
 
+def _first_crop(aug, img, rng):
+    return aug(img, rng=rng)[0]
+
+
 def test_parallel_aug_pool_equal(folder):
     ds = tif.ImageFolder(folder)
     aug_j = jaug.DINOAugmentation(seed=0, **AUG_KW)
     aug_t = taug.DINOAugmentation(seed=0, **AUG_KW)
 
     def first_crop(aug):
-        return lambda img, rng: aug(img, rng=rng)[0]
+        # a module-level function: the port's pool pickles the transform
+        # to its worker processes
+        return functools.partial(_first_crop, aug)
 
     jp, tp = jpre.ParallelAugPool(3, seed=5), tpre.ParallelAugPool(3, seed=5)
     try:

@@ -56,7 +56,9 @@ def test_scan_sees_the_package():
                 "utils/profiling.py", "utils/checkpoint.py",
                 "models/dino_head.py", "train/__init__.py", "train/dino.py",
                 "train/optim.py", "data/imagefolder.py", "data/augment.py",
-                "data/prefetch.py", "data/device_aug.py", "cli/dino.py"):
+                "data/prefetch.py", "data/device_aug.py", "cli/dino.py",
+                "config.py", "data/classification.py",
+                "models/resnet_cifar.py", "train/scan.py", "cli/scan.py"):
         assert f"tpu_ac_torch/{mod}" in names
 
 

@@ -1,7 +1,8 @@
 """Host-side clustering + metrics (port of ``tpu_ac.cluster.metrics``).
 
 Agglomerative (ward) clustering, Hungarian relabeling and NMI/ARI/F1 run on
-[N <= ~170] arrays with numpy and scipy alone.  ``tpu_ac`` calls sklearn
+[N <= ~170] arrays with numpy and scipy alone; SCAN's ``hungarian_evaluate``
+(ACC, Top-5, NMI, ARI) on its [N, C] class probabilities.  ``tpu_ac`` calls sklearn
 here; sklearn's ward clustering is scipy's ``hierarchy.ward`` tree cut by
 ``_hc_cut``, and its scores are closed forms over the contingency table, so
 this module computes the same values in the same order of operations
@@ -151,3 +152,71 @@ def encode_labels(label_strings: list[str]) -> np.ndarray:
     """LabelEncoder equivalent: sorted-unique string -> int."""
     lut = {c: i for i, c in enumerate(sorted(set(label_strings)))}
     return np.asarray([lut[s] for s in label_strings], dtype=int)
+
+
+def hungarian_match(preds: np.ndarray, targets: np.ndarray,
+                    num_k: int) -> list[tuple[int, int]]:
+    """IIC-style one-to-one cluster->class match (_hungarian_match,
+    Unsupervised-Classification-master/utils/evaluate_utils.py:162-186):
+    [(pred_cluster, target_class), ...] maximizing vote agreement."""
+    preds = np.asarray(preds)
+    targets = np.asarray(targets)
+    num_correct = np.zeros((num_k, num_k))
+    for c1 in range(num_k):
+        for c2 in range(num_k):
+            num_correct[c1, c2] = int(((preds == c1) & (targets == c2)).sum())
+    rows, cols = linear_sum_assignment(len(targets) - num_correct)
+    return list(zip(rows.tolist(), cols.tolist()))
+
+
+def hungarian_evaluate(probs: np.ndarray, targets: np.ndarray,
+                       compute_confusion_matrix: bool = False
+                       ) -> dict[str, object]:
+    """SCAN's hungarian evaluation with Top-5 (hungarian_evaluate,
+    evaluate_utils.py:122-159) on one head's [N, C] probabilities:
+    {'ACC', 'NMI', 'ARI', 'ACC Top-5', 'hungarian_match'}.  ACC and Top-5
+    use the match-remapped cluster ids; NMI and ARI the raw predictions
+    (both are permutation-invariant), as the reference does (PARITY #17);
+    they come from ``normalized_mutual_info`` and ``adjusted_rand``, which
+    compute sklearn's scores."""
+    probs = np.asarray(probs)
+    targets = np.asarray(targets)
+    preds = probs.argmax(axis=1)
+    num_classes = len(np.unique(targets))
+    match = hungarian_match(preds, targets, num_classes)
+
+    remap = np.zeros(max(num_classes, probs.shape[1]), dtype=np.int64)
+    for pred_i, target_i in match:
+        remap[pred_i] = target_i
+    reordered = remap[preds]
+    acc = float(np.mean(reordered == targets))
+    nmi = normalized_mutual_info(targets, preds)
+    ari = float(adjusted_rand(targets, preds))
+
+    # Top-5 over match-remapped class probabilities (evaluate_utils.py:
+    # 146-151; the reference's topk(5) assumes >= 5 clusters: clamped)
+    k = min(5, probs.shape[1])
+    top_k = np.argsort(-probs, axis=1)[:, :k]
+    reordered_top_k = remap[top_k]
+    top5 = float(np.mean((reordered_top_k == targets[:, None]).any(axis=1)))
+
+    out: dict[str, object] = {"ACC": acc, "NMI": nmi, "ARI": ari,
+                              "ACC Top-5": top5, "hungarian_match": match}
+    if compute_confusion_matrix:
+        out["confusion_matrix"] = confusion_matrix(reordered, targets,
+                                                   n_classes=num_classes)
+    return out
+
+
+def confusion_matrix(preds, labels, n_classes: int | None = None
+                     ) -> np.ndarray:
+    """[n_classes, n_classes] counts, rows = true, cols = predicted
+    (Unsupervised-Classification-master/utils/utils.py:73-83)."""
+    preds = np.asarray(preds)
+    labels = np.asarray(labels)
+    if n_classes is None:
+        n_classes = int(max(preds.max(), labels.max())) + 1
+    m = np.zeros((n_classes, n_classes), dtype=np.int64)
+    for t, p in zip(labels, preds):
+        m[int(t), int(p)] += 1
+    return m

@@ -1,19 +1,19 @@
-"""Host-side image augmentation: the DINO multi-crop (port of the DINO
-half of ``tpu_ac.data.augment``, a copy of its PIL code).
+"""Host-side image augmentation: the DINO multi-crop and the SCAN
+transforms (port of ``tpu_ac.data.augment``, a copy of its PIL code).
 
-DataAugmentationDINO (dino-main/main_dino.py:419-464) with PIL + numpy
-only.  Given the same ``random.Random`` stream, every op draws the same
-numbers and calls the same PIL functions as ``tpu_ac``'s, so the crops are
-bit-identical.  The SCAN transforms (RandAugment, Cutout, the SimCLR,
-strong, weak and val transforms) come with the SCAN port (ROADMAP Queue 1
-item 12).
+DataAugmentationDINO (dino-main/main_dino.py:419-464) and the SCAN stack
+(Unsupervised-Classification-master/data/augment.py RandAugment-style
+ops + Cutout, utils/common_config.py transform factories) with PIL +
+numpy only.  Given the same ``random.Random`` stream, every op draws the
+same numbers and calls the same PIL functions as ``tpu_ac``'s, so the
+arrays are bit-identical.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import random
-from typing import Callable
+from typing import Callable, Sequence
 
 import numpy as np
 from PIL import Image, ImageEnhance, ImageFilter, ImageOps
@@ -100,6 +100,62 @@ def solarize(img: Image.Image) -> Image.Image:
     return ImageOps.solarize(img)
 
 
+def cutout(arr: np.ndarray, n_holes: int, length: int,
+           rng: random.Random = random, random_hole: bool = True
+           ) -> np.ndarray:
+    """Cutout on a CHW float array (data/augment.py:121-160)."""
+    _, h, w = arr.shape
+    mask = np.ones((h, w), np.float32)
+    for _ in range(n_holes):
+        y, x = rng.randrange(h), rng.randrange(w)
+        ln = rng.randint(length // 2, length) if random_hole else length
+        y1, y2 = np.clip(y - ln // 2, 0, h), np.clip(y + ln // 2, 0, h)
+        x1, x2 = np.clip(x - ln // 2, 0, w), np.clip(x + ln // 2, 0, w)
+        mask[y1:y2, x1:x2] = 0.0
+    return arr * mask[None]
+
+
+# RandAugment op table (data/augment.py:11-117 equivalents)
+def _randaugment_ops(rng: random.Random) -> list[Callable]:
+    def lvl(low, high):
+        return rng.uniform(low, high)
+
+    return [
+        lambda im: ImageOps.autocontrast(im),
+        lambda im: ImageOps.equalize(im),
+        lambda im: im.rotate(lvl(-30, 30)),
+        lambda im: ImageOps.posterize(im, int(lvl(4, 8))),
+        lambda im: ImageOps.solarize(im, int(lvl(5, 256))),
+        lambda im: ImageEnhance.Color(im).enhance(lvl(0.1, 1.9)),
+        lambda im: ImageEnhance.Contrast(im).enhance(lvl(0.1, 1.9)),
+        lambda im: ImageEnhance.Brightness(im).enhance(lvl(0.1, 1.9)),
+        lambda im: ImageEnhance.Sharpness(im).enhance(lvl(0.1, 1.9)),
+        lambda im: im.transform(im.size, Image.AFFINE,
+                                (1, lvl(-0.3, 0.3), 0, 0, 1, 0)),
+        lambda im: im.transform(im.size, Image.AFFINE,
+                                (1, 0, 0, lvl(-0.3, 0.3), 0, 1)),
+        lambda im: im.transform(im.size, Image.AFFINE,
+                                (1, 0, lvl(-10, 10), 0, 1, 0)),
+        lambda im: im.transform(im.size, Image.AFFINE,
+                                (1, 0, 0, 0, 1, lvl(-10, 10))),
+    ]
+
+
+def randaugment(img: Image.Image, n: int = 4,
+                rng: random.Random = random) -> Image.Image:
+    """Apply n randomly-chosen ops (SCAN's strong augmentation,
+    data/augment.py Augment(n=4) in configs/selflabel*.yml).
+
+    Drawn WITH replacement (``random.choices``, Augment.__call__ at
+    data/augment.py:107) — the same op can apply repeatedly, which widens
+    the strong-augmentation distribution vs sampling without replacement.
+    """
+    ops = _randaugment_ops(rng)
+    for i in rng.choices(range(len(ops)), k=n):
+        img = ops[i](img)
+    return img
+
+
 def to_normalized_array(img: Image.Image,
                         mean=IMAGENET_MEAN, std=IMAGENET_STD) -> np.ndarray:
     arr = np.asarray(img, dtype=np.float32) / 255.0
@@ -181,3 +237,110 @@ class DINOAugmentation:
                 lc = gaussian_blur_pil(lc, rng=rng)
             crops.append(self._to_array(lc))
         return crops
+
+
+# --------------------------------------------------------------------------
+# SCAN transforms (utils/common_config.py:150-210 factories)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SimCLRAugmentation:
+    """Pretext transform: RRC + jitter + grayscale (common_config.py:158-171)."""
+    size: int = 32
+    scale: tuple[float, float] = (0.2, 1.0)
+    jitter_strength: float = 0.4
+    seed: int | None = None
+
+    def __post_init__(self):
+        self._rng = random.Random(self.seed)
+
+    def __call__(self, img: Image.Image,
+                 rng: random.Random | None = None) -> np.ndarray:
+        rng = self._rng if rng is None else rng
+        img = random_resized_crop(img, self.size, self.scale, rng=rng,
+                                  interpolation=Image.BILINEAR)
+        if rng.random() < 0.5:
+            img = img.transpose(Image.FLIP_LEFT_RIGHT)
+        if rng.random() < 0.8:
+            s = self.jitter_strength
+            img = color_jitter(img, s, s, s, s / 4, rng)
+        if rng.random() < 0.2:
+            img = img.convert("L").convert("RGB")
+        return to_normalized_array(img)
+
+
+@dataclasses.dataclass
+class StrongAugmentation:
+    """Self-labeling strong transform: crop + flip + RandAugment(n) + Cutout
+    (common_config.py:173-191, configs/selflabel_*.yml)."""
+    size: int = 32
+    num_ops: int = 4
+    cutout_holes: int = 1
+    cutout_length: int = 16
+    seed: int | None = None
+
+    def __post_init__(self):
+        self._rng = random.Random(self.seed)
+
+    def __call__(self, img: Image.Image,
+                 rng: random.Random | None = None) -> np.ndarray:
+        rng = self._rng if rng is None else rng
+        img = random_resized_crop(img, self.size, (0.5, 1.0), rng=rng,
+                                  interpolation=Image.BILINEAR)
+        if rng.random() < 0.5:
+            img = img.transpose(Image.FLIP_LEFT_RIGHT)
+        img = randaugment(img, self.num_ops, rng)
+        arr = to_normalized_array(img)
+        return cutout(arr, self.cutout_holes, self.cutout_length, rng)
+
+
+@dataclasses.dataclass
+class WeakAugmentation:
+    """Standard/weak transform: crop + flip (common_config.py:150-156)."""
+    size: int = 32
+    seed: int | None = None
+
+    def __post_init__(self):
+        self._rng = random.Random(self.seed)
+
+    def __call__(self, img: Image.Image,
+                 rng: random.Random | None = None) -> np.ndarray:
+        rng = self._rng if rng is None else rng
+        w, h = img.size
+        pad = self.size // 8
+        img = ImageOps.expand(img, border=pad, fill=0)
+        left = rng.randint(0, 2 * pad)
+        top = rng.randint(0, 2 * pad)
+        img = img.crop((left, top, left + self.size, top + self.size))
+        if rng.random() < 0.5:
+            img = img.transpose(Image.FLIP_LEFT_RIGHT)
+        return to_normalized_array(img)
+
+
+@dataclasses.dataclass
+class ValTransform:
+    """Deterministic eval transform: CenterCrop(size) + normalize
+    (get_val_transformations, common_config.py:247-251).  The reference
+    fills memory banks and computes predictions through its val/base
+    dataloaders with THIS transform — not the random weak train transform —
+    so neighbor mining and every hungarian/contrastive eval must use it.
+    Torchvision CenterCrop semantics: round-half-even coords, zero-pad when
+    the image is smaller than the crop."""
+    size: int = 32
+
+    def __call__(self, img: Image.Image) -> np.ndarray:
+        w, h = img.size
+        if w < self.size or h < self.size:
+            pw, ph = max(self.size - w, 0), max(self.size - h, 0)
+            img = ImageOps.expand(
+                img, border=(pw // 2, ph // 2, pw - pw // 2, ph - ph // 2),
+                fill=0)
+            w, h = img.size
+        left = int(round((w - self.size) / 2.0))
+        top = int(round((h - self.size) / 2.0))
+        img = img.crop((left, top, left + self.size, top + self.size))
+        return to_normalized_array(img)
+
+
+def augment_batch(images: Sequence[Image.Image], transform) -> np.ndarray:
+    return np.stack([transform(img) for img in images])

@@ -20,12 +20,19 @@ reference's worker-order-dependent torch RNG streams.
 
 from __future__ import annotations
 
+import gc
+import multiprocessing
+import os
 import random
+import signal
+import sys
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Iterable, Iterator, Sequence
 
 import numpy as np
 import torch
+from PIL import Image
 
 
 def to_device(device: str | torch.device):
@@ -197,55 +204,150 @@ class BaseImagePrefetcher:
             self._head.shutdown(wait=False, cancel_futures=True)
 
 
+def _worker_context():
+    """The forkserver context, its server preloaded with this module and
+    the program's main module: the server is a fresh process (no threads,
+    no CUDA), imports those once, and forks each worker from itself, so a
+    worker starts with torch and the transforms already imported.  A
+    spawned worker would import the main module anew (seconds of imports
+    for ``cli.scan``, each of 8 workers at once)."""
+    ctx = multiprocessing.get_context("forkserver")
+    main = sys.modules.get("__main__")
+    name = getattr(getattr(main, "__spec__", None), "name", None)
+    if name is None:  # a script: the server imports it as __main__
+        name = "__main__" if getattr(main, "__file__", None) else None
+    elif name.endswith(".__main__"):  # a package's __main__ (pytest)
+        name = None
+    ctx.set_forkserver_preload([__name__] + ([name] if name else []))
+    return ctx
+
+
+# worker pools of this process that are open, and the lock over the count:
+# the last one to close stops the servers that the pools share
+_OPEN_POOLS = 0
+_OPEN_LOCK = threading.Lock()
+
+
+def _open_pool(num_workers: int):
+    global _OPEN_POOLS
+    pool = _worker_context().Pool(num_workers)
+    with _OPEN_LOCK:
+        _OPEN_POOLS += 1
+    return pool
+
+
+def _stop_servers() -> None:
+    """End the two helper processes that the forkserver context starts
+    beside the workers, so that no process outlives the last pool's
+    ``close``: the forkserver, which would otherwise exit only after this
+    process has, and then outlive it while it tears down the torch it
+    preloaded; and the resource tracker.  The server holds no state once
+    the workers have ended, so it is terminated; the tracker stops when
+    its pipe closes, after the pools' semaphores have unregistered
+    themselves (``gc.collect`` runs their finalizers).  The next pool
+    starts both anew.  Neither has a public stop; these are the calls
+    CPython's own multiprocessing tests use."""
+    from multiprocessing import forkserver, resource_tracker
+
+    gc.collect()
+    server = forkserver._forkserver
+    if server._forkserver_pid is not None:
+        os.kill(server._forkserver_pid, signal.SIGTERM)
+    server._stop()
+    resource_tracker._resource_tracker._stop()
+
+
+def _augment_chunk(aug: Callable, arrays: Sequence[np.ndarray],
+                   keys: Sequence) -> np.ndarray:
+    """A worker's share of ``ParallelAugPool.stack``: ``aug`` over the
+    images (uint8 arrays, RGB or L, back to PIL here), each with the rng of
+    its key (None: a transform that takes no rng)."""
+    out = []
+    for a, key in zip(arrays, keys):
+        img = Image.fromarray(a)
+        out.append(aug(img) if key is None
+                   else aug(img, rng=random.Random(key)))
+    return np.stack(out)
+
+
 class ParallelAugPool:
     """Deterministic parallel augmentation for single-crop transform loops
     (the reference's ``DataLoader(num_workers=8)`` role in the SCAN
     stages, Unsupervised-Classification-master/configs/env.yml +
     common_config.py get_train_dataloader).
 
-    ``stack`` pool-maps ``aug(img, rng=...)`` over a batch of dataset
-    indices and stacks the results; each call draws from
-    ``random.Random((seed, stream, epoch, position))`` so the output is
-    independent of worker scheduling.  ``lookahead`` overlaps whole-batch
-    assembly with the caller's consume (train step) via one background
-    thread.  ``num_workers=0`` degrades to the serial loop.
+    ``stack`` maps ``aug(img, rng=...)`` over a batch of dataset indices
+    and stacks the results; each image draws from
+    ``random.Random(f"{seed}/{stream}/{epoch}/{position}")``, so the
+    output is independent of the workers (bit-equal to ``tpu_ac``'s pool
+    and to the serial loop).  ``lookahead`` overlaps whole-batch assembly
+    with the caller's consume (train step) via one background thread.
+    ``num_workers=0`` degrades to the serial loop.
+
+    The workers are processes (forked from a clean forkserver, see
+    ``_worker_context``), as the reference's DataLoader's are, where
+    ``tpu_ac``'s are threads: at SCAN's 32 px every PIL op is short, so a
+    thread holds the interpreter lock for most of an image, and 8 threads
+    run slower than one (chip_smoke.py's SCAN phase times the three).  The
+    batch's images go to the workers as uint8 arrays (RGB or L: the
+    classification datasets' images) in ``num_workers`` chunks, and the
+    arrays come back in order.  The workers start on the lookahead thread,
+    so the caller's own set-up overlaps their start.
     """
 
     def __init__(self, num_workers: int = 8, seed: int = 0):
         self.num_workers = num_workers
         self.seed = seed
-        self._pool = (ThreadPoolExecutor(num_workers, "tpu_ac_torch-aug")
-                      if num_workers > 0 else None)
         self._head = (ThreadPoolExecutor(1, "tpu_ac_torch-prefetch")
+                      if num_workers > 0 else None)
+        self._pool = (self._head.submit(_open_pool, num_workers)
                       if num_workers > 0 else None)
 
     def stack(self, aug: Callable, get_image: Callable,
               idxs: Sequence[int], *, epoch: int = 0, start: int = 0,
               stream: str = "", keyed: bool = True) -> np.ndarray:
-        """np.stack([aug(get_image(i)) for i in idxs]), pool-mapped.
+        """np.stack([aug(get_image(i)) for i in idxs]), on the workers.
 
         ``keyed=True`` passes a per-position private rng to ``aug``;
         ``keyed=False`` is for deterministic transforms (ValTransform)
-        that take no rng argument.
+        that take no rng argument.  ``aug`` must pickle (a module-level
+        function or a transform object).
         """
-        def one(k_i):
-            k, i = k_i
-            img = get_image(int(i))
-            if not keyed:
-                return aug(img)
-            return aug(img, rng=random.Random(
-                f"{self.seed}/{stream}/{epoch}/{start + k}"))
-        work = list(enumerate(idxs))
-        if self._pool is None:
-            return np.stack([one(w) for w in work])
-        return np.stack(list(self._pool.map(one, work)))
+        # uint8 arrays pickle at a fraction of a PIL image's cost
+        images = [np.asarray(get_image(int(i))) for i in idxs]
+        keys = [f"{self.seed}/{stream}/{epoch}/{start + k}" if keyed
+                else None for k in range(len(images))]
+        if self._pool is None or len(images) < 2:
+            return _augment_chunk(aug, images, keys)
+        cuts = np.linspace(0, len(images),
+                           min(self.num_workers, len(images)) + 1).astype(int)
+        pool = self._pool.result()
+        parts = [pool.apply_async(_augment_chunk,
+                                  (aug, images[a:b], keys[a:b]))
+                 for a, b in zip(cuts[:-1], cuts[1:])]
+        return np.concatenate([r.get() for r in parts])
 
     def lookahead(self, thunks: Iterable[Callable[[], Any]]
                   ) -> Iterator[Any]:
         yield from _lookahead(self._head, thunks)
 
     def close(self) -> None:
-        if self._pool is not None:
-            self._pool.shutdown(wait=False, cancel_futures=True)
+        """Stop the workers: each process has ended when this returns, and
+        after the last open pool's close, the forkserver and the resource
+        tracker too (``_stop_servers``).  The workers hold no state, so
+        they are terminated, not drained."""
+        global _OPEN_POOLS
         if self._head is not None:
-            self._head.shutdown(wait=False, cancel_futures=True)
+            self._head.shutdown(wait=True, cancel_futures=True)
+        future, self._pool = self._pool, None
+        if future is None or future.cancelled():
+            return
+        pool = future.result()
+        del future
+        pool.terminate()
+        pool.join()
+        del pool
+        with _OPEN_LOCK:
+            _OPEN_POOLS -= 1
+            if _OPEN_POOLS == 0:
+                _stop_servers()

@@ -8,8 +8,8 @@ keys, so one set of weights feeds both packages.
 key, ``state_dict`` wrapper, torchvision's legacy DenseNet keys remapped,
 ``module.`` / ``backbone.`` prefixes, BN counters dropped) into such a
 dict; ``load_jax_params`` is the checked copy of a params dict into a
-module.  ``tpu_ac``'s MoCo renaming is not carried: it serves the
-contrastive trainer, which is not ported.
+module; ``moco_to_contrastive_params`` renames a MoCo-v2 checkpoint for
+SCAN's contrastive model.
 """
 
 from __future__ import annotations
@@ -84,6 +84,25 @@ def load_torch_checkpoint(path: str, checkpoint_key: str | None = None
     if any(".denselayer" in k for k in ckpt):
         ckpt = remap_densenet_keys(ckpt)
     return torch_state_dict_to_params(ckpt)
+
+
+def moco_to_contrastive_params(state_dict: Mapping[str, Any]
+                               ) -> dict[str, np.ndarray]:
+    """An official MoCo-v2 checkpoint in ContrastiveModel names, as numpy
+    arrays: ``module.encoder_q.*`` becomes the backbone's keys and its
+    ``fc.0``/``fc.2`` the ``contrastive_head.0``/``.2``; every other key
+    (the key encoder, the queue) is dropped
+    (Unsupervised-Classification-master/moco.py:64-88)."""
+    out: dict[str, np.ndarray] = {}
+    for k, v in state_dict.items():
+        if not k.startswith("module.encoder_q."):
+            continue
+        name = k[len("module.encoder_q."):]
+        if name.startswith("fc."):
+            name = "contrastive_head." + name[len("fc."):]
+        out[name] = np.asarray(v.detach().cpu().numpy()
+                               if isinstance(v, torch.Tensor) else v)
+    return out
 
 
 def remap_densenet_keys(state_dict: Mapping[str, Any]) -> dict[str, Any]:

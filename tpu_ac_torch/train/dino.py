@@ -48,11 +48,9 @@ from tpu_ac_torch.data.mvtec import normalize_on_device
 from tpu_ac_torch.device import resolve_device
 from tpu_ac_torch.models.dino_head import DINOHead, init_dino_head_params
 from tpu_ac_torch.models.vit import ViT, ViTConfig, init_vit_params
+from tpu_ac_torch.train.optim import AdamState, scale_by_adam
 
 Params = Mapping[str, torch.Tensor]
-
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
-
 
 @dataclasses.dataclass(frozen=True)
 class DINOConfig:
@@ -146,14 +144,6 @@ def make_step_schedule_tables(cfg: DINOConfig,
     }
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
             for k, v in tables.items()}
-
-
-class AdamState(NamedTuple):
-    """optax ``ScaleByAdamState``: the same fields in the same order, so
-    a checkpoint's leaves line up with ``tpu_ac``'s."""
-    count: torch.Tensor  # int32 scalar, shared by every parameter
-    mu: dict[str, torch.Tensor]
-    nu: dict[str, torch.Tensor]
 
 
 class DINOTrainState(NamedTuple):
@@ -366,20 +356,9 @@ def dino_update(state: DINOTrainState, grads: Params,
     g = [torch.where(freeze_last, torch.zeros_like(gi), gi) if f else gi
          for gi, f in zip(g, frozen)]
 
-    # optax scale_by_adam: moments, one shared count, bias correction,
-    # eps outside the square root
     opt = state.opt_state
-    mu = torch._foreach_mul([opt.mu[k] for k in names], ADAM_B1)
-    torch._foreach_add_(mu, torch._foreach_mul(g, 1 - ADAM_B1))
-    nu = torch._foreach_mul([opt.nu[k] for k in names], ADAM_B2)
-    torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(g, g),
-                                               1 - ADAM_B2))
-    count = opt.count + 1
-    bc1 = 1 - torch.pow(ADAM_B1, count)
-    bc2 = 1 - torch.pow(ADAM_B2, count)
-    denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
-    torch._foreach_add_(denom, ADAM_EPS)
-    u = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+    u, mu, nu, count = scale_by_adam(g, [opt.mu[k] for k in names],
+                                     [opt.nu[k] for k in names], opt.count)
 
     wd_mask = _no_wd_mask(state.student)
     decayed = [i for i, k in enumerate(names) if wd_mask[k]]
