@@ -118,7 +118,30 @@ Phases, each fatal on failure:
      float64 CPU run (the SCAN_*_BOUND rules), the states after the step
      too; the SimCLR step's share of the TF32 and f32 peaks.  No
      hand-written kernel lies on this path (asserted: no launches);
- 11. timings at the main path's shapes: each kernel beside its bound, its
+ 11. DINO's evals: the five eval CLIs in this process (main(argv), on
+     cuda) at the recipes' full widths on their seeded inits, on
+     synthetic trees from numpy seeds: cli.eval_knn at its defaults
+     (ViT-S/16, 224 px, batch 128, k 10/20/100/200) on a 4-class
+     ImageFolder of 256 + 128 images, --dump_features, 8 val images'
+     card features (TF32) within ZOO_GAP_BOUND of the CPU's f32; then
+     knn_classifier at ImageNet's size on seeded unit features on the card
+     (1,281,167 x 384 f32, 1,000 classes, 50,000 queries, k = 20: host
+     wall time, the votes' device time, the f32 product's bound) and on
+     20,000 x 1,000 of them the top-5 classes against a float64 host vote
+     away from ties; cli.eval_linear (n_last_blocks 4, 2 epochs) and 500
+     probe steps at 1,536 -> 1,000, batch 256 (steps/s, the ImageNet
+     epoch's seconds); cli.eval_copy_detection at dino_vitbase8, 320 px,
+     batch 16, on a Copydays tree of 8 originals with distractor and
+     whitening dirs (per-block mAP); cli.eval_image_retrieval at
+     dino_vitbase16, 224 px, on make_synthetic_roxford's tree, plain and
+     --multiscale 1 (mAP M/H); cli.eval_video_segmentation at its
+     defaults on one 10-frame 854 x 480 video with a 2-object first mask
+     (one palette PNG a frame at the source size, labels in {0, 1, 2}; ms
+     a frame of the embed and of the propagation); images/s of the
+     ViT-S/16 extract (batch 128) and the ViT-B/8 one at 320 px (batch
+     16) beside their shares of the dense TF32 peak.  No hand-written
+     kernel lies on this path (asserted: no launches);
+ 12. timings at the main path's shapes: each kernel beside its bound, its
      plain version and a library yardstick (cdist; scaled_dot_product_
      attention, bf16 and f32), which the port never calls; for min_dists
      also cuBLAS (torch.matmul) on the same bf16 products without the min
@@ -2640,6 +2663,462 @@ def phase_scan(torch, work: str) -> dict:
         phase_s=phase_s)
 
 
+EVAL_CLASSES = 4
+EVAL_TRAIN = 64  # images a class: 256 train images, 2 probe steps of 128
+EVAL_VAL = 32  # images a class: 128 val images
+# ImageNet-1k at the k-NN recipe: ViT-S/16 CLS features of the train and
+# val sets
+KNN_BANK, KNN_QUERIES, KNN_DIM, KNN_CLASSES, KNN_K = (1_281_167, 50_000,
+                                                      384, 1000, 20)
+KNN_CHECK = (20_000, 1_000)  # bank rows, queries held to float64
+PROBE_STEPS, PROBE_DIM, PROBE_BATCH = 500, 1536, 256
+IMAGENET_PROBE_STEPS = 5005  # 1,281,167 / 256, drop-last
+COPYDAYS_ORIGINALS = 8
+COPYDAYS_EXTRA = (("distractors", 16), ("whitening", 32))
+ROXFORD = dict(n_db=40, n_q=8, image_size=300)
+DAVIS_FRAMES, DAVIS_HW = 10, (480, 854)
+# every run of the phase goes here (the CLIs' --device)
+EVAL_DEVICE = "cuda"
+
+
+def _vit_flops(cfg, h: int, w: int) -> float:
+    """FLOPs of one image's forward through every block (2 a multiply-add,
+    as _dino_step_flops reckons them)."""
+    d, ps = cfg.embed_dim, cfg.patch_size
+    n_p = (h // ps) * (w // ps)
+    n = n_p + cfg.num_prefix_tokens
+    return (cfg.depth * (24 * n * d * d + 4 * n * n * d)
+            + 2 * n_p * 3 * ps * ps * d)
+
+
+def _smooth_images(rng, n: int, hw: tuple[int, int], tint=None):
+    """n seeded uint8 HWC images: 16 x 16 noise bicubic-upsampled to hw
+    plus fine noise, optionally tinted (a class's colour)."""
+    import numpy as np
+    from PIL import Image
+
+    out = []
+    for _ in range(n):
+        low = Image.fromarray(rng.integers(0, 256, (16, 16, 3),
+                                           dtype=np.uint8))
+        a = np.asarray(low.resize(hw[::-1], Image.BICUBIC), np.int16)
+        a = a + rng.integers(-12, 13, a.shape, dtype=np.int16)
+        if tint is not None:
+            a = (a + np.asarray(tint, np.int16)) // 2
+        out.append(np.clip(a, 0, 255).astype(np.uint8))
+    return out
+
+
+def _make_eval_trees(work: str) -> dict:
+    """The synthetic trees of the eval phase, from numpy seeds: an
+    ImageFolder with train/ and val/ (EVAL_CLASSES tinted classes at 256
+    px), a Copydays tree with distractor and whitening dirs (400 x 300),
+    make_synthetic_roxford's revisited Oxford (300 px), one DAVIS video
+    of DAVIS_FRAMES frames at 854 x 480 with a 2-object first mask."""
+    import numpy as np
+    from PIL import Image
+
+    from tpu_ac_torch.cli.eval_video_segmentation import davis_palette
+    from tpu_ac_torch.data.oxford_paris import make_synthetic_roxford
+    from tpu_ac_torch.train.copy_detection import CROP_LEVELS, JPEG_LEVELS
+
+    rng = np.random.default_rng(0)
+    root = os.path.join(work, "evals")
+    folder = os.path.join(root, "imagefolder")
+    for split, n in (("train", EVAL_TRAIN), ("val", EVAL_VAL)):
+        for c in range(EVAL_CLASSES):
+            d = os.path.join(folder, split, f"class_{c}")
+            os.makedirs(d)
+            tint = [255 * ((c >> b) & 1) for b in range(3)]
+            for i, a in enumerate(_smooth_images(rng, n, (256, 256), tint)):
+                Image.fromarray(a).save(os.path.join(d, f"{i:03d}.png"))
+
+    copydays = os.path.join(root, "copydays")
+    bases = _smooth_images(rng, COPYDAYS_ORIGINALS, (300, 400))
+    names = [f"{2000 + i}.jpg" for i in range(COPYDAYS_ORIGINALS)]
+
+    def save(block, fnames, arrays):
+        d = os.path.join(copydays, block)
+        os.makedirs(d, exist_ok=True)
+        for f, a in zip(fnames, arrays):
+            Image.fromarray(a).save(os.path.join(d, f), quality=90)
+
+    def noised(scale):
+        return [np.clip(b.astype(np.int16) + rng.integers(
+            -scale, scale + 1, b.shape, dtype=np.int16), 0, 255).astype(
+                np.uint8) for b in bases]
+
+    save("original", names, bases)
+    save("strong", [f"{n[:4]}_strong.jpg" for n in names[::2]],
+         noised(40)[::2])
+    for lvl in JPEG_LEVELS:
+        save(f"jpegqual/{lvl}", names, noised(8))
+    for lvl in CROP_LEVELS:
+        save(f"crops/{lvl}", names, noised(8))
+    extra = {}
+    for d, n in COPYDAYS_EXTRA:
+        save(d, [f"{i:03d}.jpg" for i in range(n)],
+             _smooth_images(rng, n, (300, 400)))
+        extra[d] = os.path.join(copydays, d)
+
+    revisited = make_synthetic_roxford(os.path.join(root, "revisited"),
+                                       **ROXFORD)
+
+    davis = os.path.join(root, "davis")
+    vid = os.path.join(davis, "JPEGImages", "480p", "synthetic")
+    ann = os.path.join(davis, "Annotations", "480p", "synthetic")
+    for d in (vid, ann, os.path.join(davis, "ImageSets", "2017")):
+        os.makedirs(d)
+    h, w = DAVIS_HW
+    backgrounds = _smooth_images(rng, DAVIS_FRAMES, DAVIS_HW)
+    labels = np.zeros(DAVIS_HW, np.uint8)
+    for t, a in enumerate(backgrounds):
+        for obj, (y, x, dy, dx, colour) in enumerate(
+                ((80, 100, 6, 10, (230, 40, 40)),
+                 (260, 560, -8, -12, (40, 220, 230))), 1):
+            sl = np.s_[y + dy * t:y + dy * t + 120, x + dx * t:x + dx * t
+                       + 160]
+            a[sl] = colour
+            if t == 0:
+                labels[sl] = obj
+        Image.fromarray(a).save(os.path.join(vid, f"{t:05d}.jpg"),
+                                quality=90)
+    seg = Image.fromarray(labels)
+    seg.putpalette(davis_palette().ravel().tolist())
+    seg.save(os.path.join(ann, "00000.png"))
+    with open(os.path.join(davis, "ImageSets", "2017", "val.txt"), "w") as f:
+        f.write("synthetic\n")
+    return dict(folder=folder, copydays=copydays, revisited=revisited,
+                davis=davis, **extra)
+
+
+def _run_cli(main, argv: list[str], label: str):
+    """``main(argv)`` in this process, its standard output printed as it
+    is and returned beside the result and the wall seconds."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = main(argv)
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"  {label}: {line}", flush=True)
+    print(f"{label}: {wall:.1f} s in this process", flush=True)
+    return res, out, wall
+
+
+def _knn_vote_f64(np, bank, labels, q, k: int, T: float, n_cls: int):
+    """(classes best first [n, 5], kept): the float64 host vote, and the
+    queries away from ties: the k-th and (k+1)-th similarities more than
+    1e-5 apart and the six best class weights more than 1e-5 (relative)
+    apart, where f32 and float64 may order them differently."""
+    sims = q @ bank.T
+    idx = np.argpartition(-sims, k, axis=1)[:, :k + 1]
+    top = np.take_along_axis(sims, idx, 1)
+    order = np.argsort(-top, axis=1)
+    idx, top = (np.take_along_axis(a, order, 1) for a in (idx, top))
+    probs = np.zeros((len(q), n_cls))
+    np.add.at(probs, (np.arange(len(q))[:, None], labels[idx[:, :k]]),
+              np.exp(top[:, :k] / T))
+    cls = np.argsort(-probs, axis=1)
+    best = np.take_along_axis(probs, cls[:, :6], 1)
+    kept = ((top[:, k - 1] - top[:, k] > 1e-5)
+            & np.all(-np.diff(best, axis=1) > 1e-5 * best[:, :1], axis=1))
+    return cls[:, :5], kept
+
+
+def _evals_knn_imagenet(torch) -> dict:
+    """knn_classifier at ImageNet's size on seeded unit features that live
+    on the card (host wall time, and the device time of its 100 chunks'
+    votes by CUDA events), beside the f32 product's bound; then on a
+    KNN_CHECK subset, the card's top-5 classes against a float64 host
+    vote away from ties."""
+    import numpy as np
+
+    from tpu_ac_torch.device import precision_scope
+    from tpu_ac_torch.train import evals
+
+    gen = torch.Generator(device=EVAL_DEVICE).manual_seed(0)
+
+    def unit(n):
+        x = torch.randn(n, KNN_DIM, device=EVAL_DEVICE, generator=gen)
+        return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+
+    bank, queries = unit(KNN_BANK), unit(KNN_QUERIES)
+    labels = torch.randint(0, KNN_CLASSES, (KNN_BANK,), device=EVAL_DEVICE,
+                           generator=gen)
+    q_labels = torch.randint(0, KNN_CLASSES, (KNN_QUERIES,),
+                             device=EVAL_DEVICE,
+                             generator=gen).cpu().numpy()
+    evals.knn_classifier(bank, labels, queries[:1000], q_labels[:1000],
+                         KNN_K, 0.07, KNN_CLASSES)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    top1, top5 = evals.knn_classifier(bank, labels, queries, q_labels,
+                                      KNN_K, 0.07, KNN_CLASSES)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    chunk = KNN_QUERIES // 100
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with precision_scope("highest"):
+        start.record()
+        for i in range(0, KNN_QUERIES, chunk):
+            evals._vote(queries[i:i + chunk], bank, labels, KNN_K, 0.07,
+                        KNN_CLASSES)
+        stop.record()
+    stop.synchronize()
+    device_ms = start.elapsed_time(stop)
+    flops = 2.0 * KNN_QUERIES * KNN_BANK * KNN_DIM
+    bytes_ = 4 * (KNN_BANK + KNN_QUERIES) * KNN_DIM + 8 * KNN_BANK
+    bound_ms = 1e3 * max(flops / PEAK_F32_FLOPS, bytes_ / PEAK_HBM_BYTES)
+    part = KNN_QUERIES // 5
+
+    def vote_part():
+        evals.knn_classifier(bank, labels, queries[:part], q_labels[:part],
+                             KNN_K, 0.07, KNN_CLASSES)
+
+    t0 = time.perf_counter()
+    vote_part()
+    busy = _profile_busy(torch, vote_part, time.perf_counter() - t0,
+                         f"knn_classifier on {part} queries")
+    print(f"evals k-NN at ImageNet's size ({KNN_BANK} x {KNN_DIM} f32 bank, "
+          f"{KNN_CLASSES} classes, {KNN_QUERIES} queries, k = {KNN_K}, TF32 "
+          f"off): knn_classifier {wall_ms:.1f} ms on the host clock, its "
+          f"votes {device_ms:.1f} ms on the card (CUDA events), bound "
+          f"{bound_ms:.1f} ms (operations: {flops / 1e12:.1f} TFLOP at the "
+          f"f32 peak); top-1 {top1:.3f}, top-5 {top5:.3f} (random labels)",
+          flush=True)
+
+    n_bank, n_q = KNN_CHECK
+    got = evals.knn_predictions(bank[:n_bank], labels[:n_bank],
+                                queries[:n_q], KNN_K, 0.07, KNN_CLASSES)
+    want, kept = _knn_vote_f64(np, bank[:n_bank].cpu().double().numpy(),
+                               labels[:n_bank].cpu().numpy(),
+                               queries[:n_q].cpu().double().numpy(), KNN_K,
+                               0.07, KNN_CLASSES)
+    bad = int(np.sum(np.any(got != want, axis=1) & kept))
+    if bad or kept.sum() < 0.9 * n_q:
+        _fatal(f"evals k-NN: {bad} of {int(kept.sum())} queries away from "
+               f"ties disagree with the float64 vote (of {n_q})")
+    print(f"evals k-NN check: {n_bank} x {n_q}, the top-5 classes of "
+          f"{int(kept.sum())} queries away from ties equal a float64 host "
+          f"vote ({n_q - int(kept.sum())} near ties left out)", flush=True)
+    del bank, queries, labels
+    torch.cuda.empty_cache()
+    return dict(wall_ms=wall_ms, device_ms=device_ms, bound_ms=bound_ms,
+                busy_pct=busy, checked=int(kept.sum()))
+
+
+def _evals_probe_rate(torch) -> dict:
+    """PROBE_STEPS probe steps at PROBE_DIM -> 1000, batch PROBE_BATCH, on
+    seeded features on the card (the index rows uploaded once)."""
+    from tpu_ac_torch.train import evals
+
+    gen = torch.Generator(device=EVAL_DEVICE).manual_seed(1)
+    n = 64 * PROBE_BATCH
+    feats = torch.randn(n, PROBE_DIM, device=EVAL_DEVICE, generator=gen)
+    labels = torch.randint(0, 1000, (n,), device=EVAL_DEVICE, generator=gen)
+    rows = torch.randint(0, n, (PROBE_STEPS, PROBE_BATCH), device=EVAL_DEVICE,
+                         generator=gen)
+    state, step, _ = evals.make_linear_probe(PROBE_DIM, 1000,
+                                             device=EVAL_DEVICE)
+    for r in rows[:5]:  # warm-up
+        state, loss = step(state, feats.index_select(0, r),
+                           labels.index_select(0, r), 0.001)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in rows:
+        state, loss = step(state, feats.index_select(0, r),
+                           labels.index_select(0, r), 0.001)
+    loss = float(loss)
+    steps_s = PROBE_STEPS / (time.perf_counter() - t0)
+    if not math.isfinite(loss):
+        _fatal(f"evals probe: loss {loss}")
+    epoch_s = IMAGENET_PROBE_STEPS / steps_s
+    print(f"evals probe: {PROBE_STEPS} steps at {PROBE_DIM} -> 1000, batch "
+          f"{PROBE_BATCH}: {steps_s:.1f} steps/s; an ImageNet epoch "
+          f"({IMAGENET_PROBE_STEPS} steps) {epoch_s:.1f} s; loss {loss:.4f}",
+          flush=True)
+    return dict(steps_s=steps_s, imagenet_epoch_s=epoch_s)
+
+
+def _evals_rates(torch) -> dict:
+    """images/s of the two full-width extracts (TF32, seeded uint8 images
+    on the card): ViT-S/16 CLS at 224, batch 128; ViT-B/8 last-block
+    tokens + GeM at 320, batch 16; each beside its share of the dense TF32
+    peak."""
+    from tpu_ac_torch.models.registry import load_backbone
+    from tpu_ac_torch.train.copy_detection import gem_cls_features
+    from tpu_ac_torch.train.evals import make_embedder
+
+    out = {}
+    for name, size, batch, fwd in (
+            ("dino_deitsmall16", 224, 128, lambda m, x: m.forward_cls(x)),
+            ("dino_vitbase8", 320, 16, lambda m, x: gem_cls_features(
+                m.intermediate_layers(x, 1)[0]))):
+        model, cfg, _ = load_backbone(name)
+        embed = make_embedder(model.to(EVAL_DEVICE), fwd)
+        x = torch.randint(0, 256, (batch, 3, size, size), dtype=torch.uint8,
+                          device=EVAL_DEVICE)
+        # 2 calls: more would fill the card's launch queue while it sleeps
+        with torch.inference_mode():
+            ms, _host = _time_ms(lambda: embed(x), reps=2, warmup=2)
+        img_s = batch * 1e3 / ms
+        share = 100 * _vit_flops(cfg, size, size) * img_s / PEAK_TF32_FLOPS
+        print(f"evals rate {name} at {size} px, batch {batch} (TF32): "
+              f"{ms:.2f} ms a batch, {img_s:.1f} images/s, "
+              f"{share:.1f}% of the dense TF32 peak "
+              f"({_vit_flops(cfg, size, size) / 1e9:.2f} GFLOP an image)",
+              flush=True)
+        out[name] = dict(batch_ms=ms, images_s=img_s, tf32_peak_pct=share)
+        del model, embed
+        torch.cuda.empty_cache()
+    return out
+
+
+def _evals_davis_times(torch, davis: str) -> dict:
+    """ms a frame of the DAVIS embed and of the propagation at the CLI's
+    defaults, on the synthetic video (CUDA-synchronized host clock)."""
+    import glob
+
+    from tpu_ac_torch.cli import eval_video_segmentation as vs
+    from tpu_ac_torch.models.registry import load_backbone
+    from tpu_ac_torch.train.video_seg import propagate_video
+
+    model, cfg, _ = load_backbone("dino_deitsmall16")
+    model = model.to(EVAL_DEVICE)
+    paths = sorted(glob.glob(os.path.join(davis, "JPEGImages", "480p",
+                                          "synthetic", "*.jpg")))
+    frames = [vs.read_frame(p, [480])[0] for p in paths]
+    first, _ = vs.read_seg(paths[0].replace("JPEGImages", "Annotations")
+                           .replace("jpg", "png"), cfg.patch_size, [480])
+    grid = tuple(s // cfg.patch_size for s in frames[0].shape[1:])
+    with torch.inference_mode():
+        dev = torch.device(EVAL_DEVICE)
+        vs.extract_frame_features(model, frames[:6], 6, dev)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = vs.extract_frame_features(model, frames, 6, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        propagate_video(feats, first, grid, normalize=False)
+        t2 = time.perf_counter()
+        busy = _profile_busy(
+            torch, lambda: propagate_video(feats, first, grid,
+                                           normalize=False), t2 - t1,
+            f"the propagation of {len(frames) - 1} frames")
+    n = len(frames)
+    embed_ms, prop_ms = 1e3 * (t1 - t0) / n, 1e3 * (t2 - t1) / (n - 1)
+    print(f"evals DAVIS at {frames[0].shape[1]} x {frames[0].shape[2]} "
+          f"({grid[0]} x {grid[1]} patches, ViT-S/16, f32, batch 6): embed "
+          f"{embed_ms:.2f} ms a frame, propagation {prop_ms:.2f} ms a frame "
+          "(7 context frames, top-5, neighbourhood 12)", flush=True)
+    return dict(embed_ms_per_frame=embed_ms, propagate_ms_per_frame=prop_ms,
+                propagate_busy_pct=busy)
+
+
+def phase_evals(torch, work: str) -> dict:
+    """DINO's evaluation suite through its five CLIs in this process, at
+    the recipes' full widths on their seeded inits (see the module
+    docstring, phase 11)."""
+    import numpy as np
+    from PIL import Image
+
+    from tpu_ac_torch.cli import (
+        eval_copy_detection,
+        eval_image_retrieval,
+        eval_knn,
+        eval_linear,
+        eval_video_segmentation,
+    )
+    from tpu_ac_torch.models.registry import load_backbone
+    from tpu_ac_torch.train.evals import make_embedder
+
+    t_start = time.perf_counter()
+    trees = _make_eval_trees(work)
+    print(f"evals: synthetic trees in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    run: dict = {}
+
+    dump = os.path.join(work, "evals", "knn_features.npz")
+    dev = ["--device", EVAL_DEVICE]
+    knn, _out, knn_s = _run_cli(eval_knn.main, [
+        "--data_path", trees["folder"], "--dump_features", dump, *dev],
+        "eval_knn")
+    feats = np.load(dump)
+    model, cfg, _ = load_backbone("dino_deitsmall16")
+    n_train, n_val = EVAL_CLASSES * EVAL_TRAIN, EVAL_CLASSES * EVAL_VAL
+    if not (feats["train"].shape == (n_train, cfg.embed_dim)
+            and feats["val"].shape == (n_val, cfg.embed_dim)
+            and np.isfinite(feats["train"]).all()
+            and sorted(knn) == [10, 20, 100, 200]):
+        _fatal(f"eval_knn: features {feats['train'].shape}, "
+               f"{feats['val'].shape}, results {knn}")
+    val_x, _, _ = eval_knn.load_split(os.path.join(trees["folder"], "val"),
+                                      224)
+    embed = make_embedder(model, lambda m, x: m.forward_cls(x))
+    with torch.inference_mode():
+        cpu = torch.nn.functional.normalize(
+            embed(torch.from_numpy(val_x[:8])), dim=1)
+    gap = _rel_gap(torch, torch.from_numpy(feats["val"][:8]), cpu)
+    if not gap <= ZOO_GAP_BOUND:
+        _fatal(f"eval_knn: the card's TF32 features of 8 images are {gap:.3e}"
+               f" (relative L2) from the CPU's f32, bound {ZOO_GAP_BOUND}")
+    print(f"eval_knn: {n_train} + {n_val} images at ViT-S/16, 224 px, batch "
+          f"128; the card's features of 8 images {gap:.3e} from the CPU's "
+          f"f32 (relative L2, bound {ZOO_GAP_BOUND})", flush=True)
+    run["knn"] = dict(cli_s=knn_s, gap=gap,
+                      top1={str(k): v[0] for k, v in knn.items()},
+                      imagenet=_evals_knn_imagenet(torch))
+
+    acc, _out, lin_s = _run_cli(eval_linear.main, [
+        "--data_path", trees["folder"], "--epochs", "2", *dev], "eval_linear")
+    if not 0.0 <= acc <= 100.0:
+        _fatal(f"eval_linear: val top-1 {acc}")
+    run["linear"] = dict(cli_s=lin_s, top1=acc, **_evals_probe_rate(torch))
+
+    cd_args = ["--data_path", trees["copydays"], "--distractors_path",
+               trees["distractors"], "--whitening_path", trees["whitening"],
+               *dev]
+    cd, _out, cd_s = _run_cli(eval_copy_detection.main, cd_args,
+                              "eval_copy_detection")
+    n_cd = (COPYDAYS_ORIGINALS * 19 + COPYDAYS_ORIGINALS // 2
+            + COPYDAYS_ORIGINALS + sum(n for _, n in COPYDAYS_EXTRA))
+    if not (len(cd) == 20 and all(0.0 <= v <= 1.0 for v in cd.values())):
+        _fatal(f"eval_copy_detection: {cd}")
+    run["copydays"] = dict(cli_s=cd_s, images=n_cd,
+                           cli_images_s=n_cd / cd_s, mAP=cd)
+
+    run["retrieval"] = {}
+    for ms in ("0", "1"):
+        res, _out, r_s = _run_cli(eval_image_retrieval.main, [
+            "--data_path", trees["revisited"], "--multiscale", ms, *dev],
+            f"eval_image_retrieval --multiscale {ms}")
+        if not all(0.0 <= res[k] <= 1.0 for k in ("mAP_M", "mAP_H")):
+            _fatal(f"eval_image_retrieval: {res}")
+        run["retrieval"]["multiscale" if ms == "1" else "plain"] = dict(
+            cli_s=r_s, mAP_M=res["mAP_M"], mAP_H=res["mAP_H"])
+
+    out_dir = os.path.join(work, "evals", "davis_out")
+    written, _out, dv_s = _run_cli(eval_video_segmentation.main, [
+        "--data_path", trees["davis"], "--output_dir", out_dir, *dev],
+        "eval_video_segmentation")
+    labels = set()
+    for p in written:
+        im = Image.open(p)
+        if im.mode != "P" or im.size != DAVIS_HW[::-1]:
+            _fatal(f"eval_video_segmentation: {p} is {im.mode} {im.size}")
+        labels |= set(np.unique(np.asarray(im)).tolist())
+    if len(written) != DAVIS_FRAMES or not labels <= {0, 1, 2}:
+        _fatal(f"eval_video_segmentation: {len(written)} PNGs, labels "
+               f"{sorted(labels)}")
+    run["davis"] = dict(cli_s=dv_s, pngs=len(written),
+                        **_evals_davis_times(torch, trees["davis"]))
+    run["rates"] = _evals_rates(torch)
+    run["phase_s"] = time.perf_counter() - t_start
+    print(f"evals phase: {run['phase_s']:.1f} s", flush=True)
+    return run
+
+
 def _round6(tree):
     """``tree`` with every float at 6 significant digits."""
     if isinstance(tree, dict):
@@ -2740,6 +3219,13 @@ def main() -> None:
         if scan_launches:
             _fatal(f"the scan path launched {scan_launches} kernels of the "
                    "clustering path")
+        dist.LAUNCHES = dist.WINDOW_LAUNCHES = attn.LAUNCHES = 0
+        evals_run = phase_evals(torch, work)
+        evals_launches = (dist.LAUNCHES + dist.WINDOW_LAUNCHES
+                          + attn.LAUNCHES)
+        if evals_launches:
+            _fatal(f"the eval path launched {evals_launches} kernels of the "
+                   "clustering path")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # the supervised run pads its 84 queries to the 32-image bucket (96)
@@ -2839,6 +3325,7 @@ def main() -> None:
         "dino": {k: (float(f"{v:.6g}") if isinstance(v, float) else v)
                  for k, v in dino_run.items()},
         "scan": _round6(scan_run),
+        "evals": _round6(evals_run),
         "mesh": {"sweep_img_s": r4(mesh_run["sweep_img_s"]),
                  "window_ms": r4(window_timing["ms"]),
                  "w_gap_over_bound": float(

@@ -58,7 +58,13 @@ def test_scan_sees_the_package():
                 "train/optim.py", "data/imagefolder.py", "data/augment.py",
                 "data/prefetch.py", "data/device_aug.py", "cli/dino.py",
                 "config.py", "data/classification.py",
-                "models/resnet_cifar.py", "train/scan.py", "cli/scan.py"):
+                "models/resnet_cifar.py", "train/scan.py", "cli/scan.py",
+                "train/evals.py", "train/copy_detection.py",
+                "train/video_seg.py", "data/__init__.py",
+                "data/oxford_paris.py", "cli/eval_knn.py",
+                "cli/eval_linear.py", "cli/eval_copy_detection.py",
+                "cli/eval_image_retrieval.py",
+                "cli/eval_video_segmentation.py"):
         assert f"tpu_ac_torch/{mod}" in names
 
 

@@ -341,3 +341,19 @@ class ViT(nn.Module):
         for blk in self.blocks:
             x = _run_block(blk, x, remat)
         return self.norm(x[:, 0])  # per token: the CLS row alone suffices
+
+    def intermediate_layers(self, images: torch.Tensor,
+                            n: int = 1) -> list[torch.Tensor]:
+        """The final-norm'd outputs [B, N+prefix, D] of the last ``n``
+        blocks (``tpu_ac``'s ``vit_intermediate_layers``, the reference's
+        get_intermediate_layers).  Any H x W whose sides the patch divides
+        is taken: the pos-embed is resized to the grid."""
+        if not 1 <= n <= self.cfg.depth:
+            raise ValueError(f"n {n} outside 1..{self.cfg.depth}")
+        x = self.prepare_tokens(images)
+        outs = []
+        for i, blk in enumerate(self.blocks):
+            x = blk(x)
+            if i >= self.cfg.depth - n:
+                outs.append(self.norm(x))
+        return outs
