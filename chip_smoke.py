@@ -50,7 +50,23 @@ Phases, each fatal on failure:
      category through the rect scheme and one through the sharded
      supervised path (the rectangular kernel on the mesh); sweep img/s,
      alpha ms a category, one profiled sweep;
-  7. PatchCore path: the flagship recipe through tpu_ac_torch.cli.
+  7. export and serving: on bottle (84 images) of the same tree,
+     tpu_ac_torch.cli.export (in this process, main(argv)) at its
+     defaults (dino_vitbase8, unsupervised, precision default) with
+     --n_images 96 --dump_params, then a supervised artifact at bfloat16
+     with --n_train_images 32 and a --dp 2 one; each served by
+     scripts/serving_host_torch.py in a process of its own (no tpu_ac*
+     module loaded there, asserted by the host): the first alone with
+     --bench, beside the live embed + alpha of the same category timed
+     here, the other two side by side; each process's min_dists launches
+     a category (1, 1 and 2 window) and plain calls (0) asserted; the
+     served Z (the artifact's embed program here) against the live
+     embedder's, bit for bit or within ZOO_GAP_BOUND; the served alpha/X
+     bit-equal to the live path's on the served Z, and their gap to it
+     on the live Z; the native host library built and loaded; export s,
+     artifact bytes, serving s a category and images/s beside the card
+     line;
+  8. PatchCore path: the flagship recipe through tpu_ac_torch.cli.
      patchcore with --compute_pro on a synthetic category of 220 train / 83
      test images (256 px sources): wideresnet50 on its seeded init, layer2
      + layer3, 1024 -> 1024, patchsize 3, 10% approximate greedy coreset,
@@ -63,7 +79,7 @@ Phases, each fatal on failure:
      the CPU's on 16,384 projected rows, the segmentor against scipy's
      gaussian_filter on 4 images; one profiled fit + predict.  No
      hand-written kernel lies on this path (asserted: no launches);
-  8. zoo: one registry name per family beside those above (ZOO: vgg19_bn,
+  9. zoo: one registry name per family beside those above (ZOO: vgg19_bn,
      alexnet, densenet201, inception_v4, bninception, resnest50,
      resnetv2_50_bit, efficientnet_b7, efficientnetv2_l, mnasnet_a1,
      vit_r50, vit_swin_base, dino_xcit_medium_24_p8, vit_deit_distilled),
@@ -76,7 +92,7 @@ Phases, each fatal on failure:
      it), embed ms/image, sweep img/s and the peak memory; each model
      freed before the next; then python -m tpu_ac_torch.cli.main and
      cli.evaluate on dino_xcit_medium_24_p8, each a process of its own;
-  9. DINO training: a synthetic ImageFolder (2 classes, 448 PNGs at 256
+ 10. DINO training: a synthetic ImageFolder (2 classes, 448 PNGs at 256
      px from a numpy seed: 7 steps of 64) through python -m
      tpu_ac_torch.cli.dino at main_dino's recipe (ViT-S/16, out_dim
      65536, 2 x 224 + 8 x 96 crops, batch 64, bf16, AdamW, clip 3, last
@@ -96,7 +112,7 @@ Phases, each fatal on failure:
      equal to the CPU's update of the card's gradients, and the states
      after the step apart by at most Adam's first step, 2 lr.  No
      hand-written kernel lies on this path (asserted: no launches);
- 10. SCAN: a synthetic CIFAR-10 in the cifar-10-batches-py pickle format
+ 11. SCAN: a synthetic CIFAR-10 in the cifar-10-batches-py pickle format
      (SCAN_TRAIN + SCAN_TEST images at 32 px in 10 classes, from a numpy
      seed) through python -m tpu_ac_torch.cli.scan simclr, scan,
      selflabel and eval at tpu_ac's cifar-10 configs with epochs 1
@@ -118,7 +134,7 @@ Phases, each fatal on failure:
      float64 CPU run (the SCAN_*_BOUND rules), the states after the step
      too; the SimCLR step's share of the TF32 and f32 peaks.  No
      hand-written kernel lies on this path (asserted: no launches);
- 11. DINO's evals: the five eval CLIs in this process (main(argv), on
+ 12. DINO's evals: the five eval CLIs in this process (main(argv), on
      cuda) at the recipes' full widths on their seeded inits, on
      synthetic trees from numpy seeds: cli.eval_knn at its defaults
      (ViT-S/16, 224 px, batch 128, k 10/20/100/200) on a 4-class
@@ -141,7 +157,7 @@ Phases, each fatal on failure:
      ViT-S/16 extract (batch 128) and the ViT-B/8 one at 320 px (batch
      16) beside their shares of the dense TF32 peak.  No hand-written
      kernel lies on this path (asserted: no launches);
- 12. timings at the main path's shapes: each kernel beside its bound, its
+ 13. timings at the main path's shapes: each kernel beside its bound, its
      plain version and a library yardstick (cdist; scaled_dot_product_
      attention, bf16 and f32), which the port never calls; for min_dists
      also cuBLAS (torch.matmul) on the same bf16 products without the min
@@ -224,11 +240,9 @@ def _check_no_children() -> None:
 
 
 def _card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()
-    return out[0]
+    from tpu_ac_torch.device import card_report
+
+    return card_report()["line"]
 
 
 def _time_ms(fn, reps: int, warmup: int = 1) -> tuple[float, float]:
@@ -312,20 +326,29 @@ def _check_agree(torch, got, want, Z, bank, label: str,
     return _check_d2(torch, got, want, tol, label, quiet)
 
 
-def _window_active(torch, n_i: int, n_w: int, window: int):
+def _window_active(torch, n_i: int, n_w: int, window: int,
+                   row_valid=None, col_valid=None):
     r = torch.arange(n_i, device="cuda")[:, None]
     w = torch.arange(n_w, device="cuda")[None, :]
-    return (r <= w) & (w < r + window)
+    act = (r <= w) & (w < r + window)
+    if row_valid is not None:
+        act &= row_valid.cuda()[:, None]
+    if col_valid is not None:
+        act &= col_valid.cuda()[None, :]
+    return act
 
 
 def _check_window(torch, got, want, Z, bank, window: int,
-                  label: str, quiet: bool = False) -> float:
+                  label: str, quiet: bool = False, row_valid=None,
+                  col_valid=None) -> float:
     """The window kernel's (row [I, W, P], col [W, I, Q]) against the plain
-    version's on the active tiles, by _check_agree's rule (the col-min of
-    a tile is the row-min of its transpose, so its tolerance swaps the
-    roles of the two norms); the inactive tiles must be +inf on both
-    sides.  Returns the max abs error."""
-    act = _window_active(torch, Z.shape[0], bank.shape[0], window)
+    version's on the active tiles (those of valid rows and columns, where
+    masks are given), by _check_agree's rule (the col-min of a tile is the
+    row-min of its transpose, so its tolerance swaps the roles of the two
+    norms); the inactive tiles must be +inf on both sides.  Returns the
+    max abs error."""
+    act = _window_active(torch, Z.shape[0], bank.shape[0], window,
+                         row_valid, col_valid)
     a2, b2 = Z.square().sum(-1), bank.square().sum(-1)  # [I, P], [W, Q]
     tols = (D2_RTOL * (a2[:, None, :] + b2.amax(-1)[None, :, None]),
             D2_RTOL * (b2[:, None, :] + a2.amax(-1)[None, :, None]))
@@ -339,6 +362,23 @@ def _check_window(torch, got, want, Z, bank, window: int,
         err = max(err, _check_d2(torch, g[m], w[m], tol[m],
                                  f"{label} {part}-mins", quiet))
     return err
+
+
+def _check_padded(torch, got, want, Z, bank, n: int, nb: int,
+                  label: str) -> float:
+    """A count-restricted op's [cap, cap_bank, P] against the plain
+    version's: entries of a row at or past ``n`` or a bank image at or
+    past ``nb`` +inf on both sides, the valid block by _check_agree's
+    rule.  Returns the max abs error."""
+    valid = torch.zeros(got.shape[:2], dtype=torch.bool, device="cuda")
+    valid[:n, :nb] = True
+    if got.shape != want.shape or got.shape[:2] != (len(Z), len(bank)) or \
+            not (bool(torch.isinf(got[~valid]).all())
+                 and bool(torch.isinf(want[~valid]).all())):
+        _fatal(f"{label}: shape {tuple(got.shape)} or an entry past the "
+               "valid counts that is not +inf")
+    return _check_agree(torch, got[:n, :nb], want[:n, :nb], Z[:n], bank[:nb],
+                        label)
 
 
 def _window_inputs(torch, gen, n: int, off: int, n_local: int, p: int,
@@ -768,6 +808,7 @@ def phase_main_path(torch, dist, attn, work: str, root: str,
     from tpu_ac_torch.cli.main import main as cli_main
     from tpu_ac_torch.pipeline import (
         PipelineConfig,
+        _pad_bucket,
         build_embedder_for_config,
         compute_alpha_X,
         run_category_sweep,
@@ -841,22 +882,64 @@ def phase_main_path(torch, dist, attn, work: str, root: str,
         compute_alpha_X(Zc, "unsupervised", 1.0, precision="bf16")
         torch.cuda.synchronize()
         alpha_ms[c] = (time.perf_counter() - t0) * 1e3
-    # the kernel on real embeddings against its plain version, and the
-    # alpha each gives (printed: alpha follows from the mins)
+    # the kernel on real embeddings against its plain version, in the form
+    # the main path and the exported programs give it: Z padded to the
+    # 32-image bucket, the valid count below it; and the alpha each gives
+    # (printed: alpha follows from the mins)
     Zs = emb(images[cats[0]])
     n = len(Zs)
-    mins_k = dist.min_dists_all_pairs(Zs, Zs, precision="bf16",
-                                      symmetric=True)
-    mins_p = dist.min_dists_all_pairs_plain(Zs, Zs, precision="bf16",
-                                            symmetric=True)
-    _check_agree(torch, mins_k, mins_p, Zs, Zs,
-                 f"kernel on {cats[0]}'s embeddings (N={n}, bf16)")
-    a_k = alpha_from_weights(mins_k.sum(1) / (n - 1), 1.0)
-    a_p = alpha_from_weights(mins_p.sum(1) / (n - 1), 1.0)
+    zp = _pad_bucket(Zs, 32)
+    cap = len(zp)
+    mins_k = dist.min_dists_all_pairs(zp, zp, precision="bf16",
+                                      symmetric=True, n_valid=n)
+    mins_p = dist.min_dists_all_pairs_plain(zp, zp, precision="bf16",
+                                            symmetric=True, n_valid=n)
+    _check_padded(torch, mins_k, mins_p, zp, zp, n, n,
+                  f"kernel symmetric on {cats[0]}'s embeddings (N={n} of "
+                  f"{cap}, bf16)")
+    a_k = alpha_from_weights(mins_k[:n, :n].sum(1) / (n - 1), 1.0)
+    a_p = alpha_from_weights(mins_p[:n, :n].sum(1) / (n - 1), 1.0)
     print(f"alpha from the kernel vs the plain version ({cats[0]}): max "
           f"relative gap {float(((a_k - a_p).abs() / a_p).max()):.3e}",
           flush=True)
-    del Z, Zs, Zc, mins_k, mins_p
+    del mins_k, mins_p
+    # the rectangular op as the supervised program gives it: both counts
+    # below their capacities (f32, the supervised run's "default")
+    n_t = 20
+    ztp = _pad_bucket(emb(MVTecDataset(root, classname=cats[0],
+                                       split=DatasetSplit.TRAIN)
+                          .load_all_images()[:n_t]), 32)
+    got = dist.min_dists_all_pairs(zp, ztp, precision="f32", n_valid=n,
+                                   n_bank_valid=n_t)
+    want = dist.min_dists_all_pairs_plain(zp, ztp, precision="f32",
+                                          n_valid=n, n_bank_valid=n_t)
+    _check_padded(torch, got, want, zp, ztp, n, n_t,
+                  f"kernel rectangular on {cats[0]}'s embeddings (N={n} of "
+                  f"{cap}, J={n_t} of {len(ztp)}, f32)")
+    del got, want, ztp
+    # the window op as the dp-2 programs give it over the padded bucket:
+    # rows and wrapped columns past n masked out, at both ranks
+    n_local, h = cap // 2, cap // 2
+    for rank in range(2):
+        off = rank * n_local
+        b_idx = (off + 1 + torch.arange(n_local - 1 + h)) % cap
+        row_valid = off + torch.arange(n_local) < n
+        col_valid = b_idx < n
+        z_loc = zp[off:off + n_local]
+        bank_w = zp[b_idx.cuda()]
+        got = dist.min_dists_window(z_loc, bank_w, window=h,
+                                    precision="f32", row_valid=row_valid,
+                                    col_valid=col_valid)
+        want = dist.min_dists_window_plain(z_loc, bank_w, window=h,
+                                           precision="f32",
+                                           row_valid=row_valid,
+                                           col_valid=col_valid)
+        _check_window(torch, got, want, z_loc, bank_w, h,
+                      f"kernel window on {cats[0]}'s embeddings (rank "
+                      f"{rank} of 2, N={n} of {cap}, f32)",
+                      row_valid=row_valid, col_valid=col_valid)
+        del got, want, z_loc, bank_w
+    del Z, Zs, Zc, zp
     sweep_s = []
     for _ in range(2):  # the first is warm-up
         t0 = time.perf_counter()
@@ -1229,6 +1312,266 @@ def phase_mesh_path(torch, dist, attn, work: str, root: str,
     return dict(launches=window_launches, sweep_img_s=n_img / sweep_s[-1],
                 alpha_ms=alpha_ms, w_gap_over_bound=w_worst, busy_pct=busy,
                 embed_gaps=embed_gaps)
+
+
+# the export phase's three artifacts: (tag, extra cli.export flags, extra
+# serving-host flags, min_dists launches a category: (symmetric +
+# rectangular, window)); the dp artifact's ranks share cuda:0
+EXPORT_CASES = (
+    ("unsupervised", [], ["--bench"], (1, 0)),
+    ("supervised", ["--supervised", "supervised", "--precision", "bfloat16",
+                    "--n_train_images", "32"], [], (1, 0)),
+    ("dp2", ["--dp", "2"], ["--devices", "cuda:0", "cuda:0"], (0, 2)),
+)
+EXPORT_CAPACITY = 96  # bottle's 84 test images, padded to the 32-bucket
+EXPORT_TRAIN = 32
+
+
+def _served_z(torch, np, path: str, params_np: dict, images):
+    """The artifact's embed program in this process, on the card, under
+    the TF32 switches of its precision: Z [N, P, D] of ``images``."""
+    from tpu_ac_torch.device import precision_scope
+    from tpu_ac_torch.utils.export import load_exported
+
+    progs = load_exported(path, device="cuda")
+    meta = progs["meta"]
+    dtype = getattr(torch, meta["param_dtype"])
+    params = {k: torch.from_numpy(v).to("cuda", dtype)
+              for k, v in params_np.items()}
+    bs = meta["batch_size"] // meta.get("n_devices", 1)
+    n = len(images)
+    pad = np.zeros(((-n) % bs, *images.shape[1:]), images.dtype)
+    full = torch.from_numpy(np.concatenate([images, pad])).cuda()
+    with precision_scope(meta["precision"]), torch.inference_mode():
+        z = torch.cat([progs["embed"](params, full[i:i + bs])
+                       for i in range(0, len(full), bs)])
+    return z[:n], meta
+
+
+def _live_alpha_x(torch, tag: str, z, zt, meta):
+    """The live alpha+X of the same Z: compute_alpha_X, or for the dp
+    artifact the mesh path (triangle partials on 2 x cuda:0) on Z padded to
+    the artifact's capacity, the placement the served ranks have."""
+    from tpu_ac_torch.cluster.alpha import (
+        alpha_from_weights,
+        weighted_embedding,
+    )
+    from tpu_ac_torch.distributed import (
+        Mesh,
+        shard_batch,
+        sharded_weight_distance_unsupervised,
+    )
+    from tpu_ac_torch.pipeline import compute_alpha_X
+
+    n, prec, tau = len(z), meta["alpha_precision"], meta["tau"]
+    if tag == "supervised":
+        return compute_alpha_X(z, "supervised", tau, zt, precision=prec,
+                               use_mesh=False, packed=True)
+    if tag == "unsupervised":
+        return compute_alpha_X(z, "unsupervised", tau, precision=prec,
+                               use_mesh=False, packed=True)
+    mesh = Mesh(["cuda:0"] * meta["n_devices"])
+    z_pad = torch.cat([z, z.new_zeros(meta["n_images_capacity"] - n,
+                                      *z.shape[1:])])
+    z_sh, _ = shard_batch(mesh, z_pad)
+    w = torch.cat(sharded_weight_distance_unsupervised(mesh, z_sh, n_valid=n,
+                                                       precision=prec))
+    alpha = alpha_from_weights(w, tau)
+    return torch.cat([alpha, weighted_embedding(alpha, z_pad)], 1)[:n]
+
+
+def _check_native(np) -> str:
+    """The native host library (Hungarian, kNN, coreset) is built and
+    loaded here, and solves an assignment as scipy does."""
+    from scipy.optimize import linear_sum_assignment
+
+    from tpu_ac_torch import native
+
+    if native.get_lib() is None:
+        _fatal("tpu_ac_torch.native: the host library did not build/load")
+    cost = np.random.default_rng(5).uniform(size=(64, 64))
+    assignment, total = native.hungarian(cost)
+    rows, cols = linear_sum_assignment(cost)
+    if not math.isclose(total, cost[rows, cols].sum(), rel_tol=1e-10):
+        _fatal(f"native hungarian total {total} vs scipy "
+               f"{cost[rows, cols].sum()}")
+    return native.library_path(native._compiler())
+
+
+def _serve(cmd: list[str], d: str, env: dict) -> subprocess.Popen:
+    return subprocess.Popen(cmd, env=env, cwd=d, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _served(tag: str, proc: subprocess.Popen, t0: float) -> dict:
+    """The serving host's JSON line, once its process has ended."""
+    out, err = proc.communicate(timeout=600)
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        _fatal(f"serving host ({tag}) exit {proc.returncode}:\n"
+               f"{out[-3000:]}\n{err[-3000:]}")
+    served = json.loads([ln for ln in out.splitlines()
+                         if ln.startswith('{"serving"')][-1])["serving"]
+    served["host_process_s"] = wall_s
+    return served
+
+
+def phase_export(torch, work: str, root: str, sizes: dict[str, int]) -> dict:
+    """The serving export path (module docstring, phase 7): cli.export on
+    the card, the serving host in a process of its own, held against the
+    live path.  The unsupervised artifact is served (and timed) alone;
+    the other two are served side by side while this process checks the
+    first."""
+    import copy
+
+    import numpy as np
+
+    from tpu_ac_torch.cli.export import main as cli_export
+    from tpu_ac_torch.data.mvtec import DatasetSplit, MVTecDataset
+    from tpu_ac_torch.device import card_report
+    from tpu_ac_torch.distributed import Mesh
+    from tpu_ac_torch.models.registry import load_backbone
+    from tpu_ac_torch.pipeline import (
+        CategoryEmbedder,
+        PipelineConfig,
+        compute_alpha_X,
+    )
+
+    t_start = time.perf_counter()
+    so = _check_native(np)
+    print(f"native host library loaded: {so}", flush=True)
+    card = card_report()["line"]
+    d = os.path.join(work, "export")
+    os.makedirs(d)
+    cat = "bottle"
+    images = MVTecDataset(root, classname=cat,
+                          split=DatasetSplit.TEST).load_all_images()
+    train = MVTecDataset(root, classname=cat, split=DatasetSplit.TRAIN) \
+        .load_all_images()[:EXPORT_TRAIN]
+    n = len(images)
+    paths = {k: os.path.join(d, f"{k}.npy") for k in ("images", "train")}
+    np.save(paths["images"], images)
+    np.save(paths["train"], train)
+    params = os.path.join(d, "params.npy")
+    host = os.path.join(HERE, "scripts", "serving_host_torch.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    runs, arts, cmds = {}, {}, {}
+    for tag, export_flags, serve_flags, _ in EXPORT_CASES:
+        arts[tag] = os.path.join(d, f"{tag}.tpuac")
+        argv = ["--n_images", str(EXPORT_CAPACITY), "--output", arts[tag],
+                *export_flags]
+        if not runs:
+            argv += ["--dump_params", params]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli_export(argv)
+        runs[tag] = dict(export_s=time.perf_counter() - t0,
+                         artifact_bytes=os.path.getsize(arts[tag]))
+        cmds[tag] = [sys.executable, host, arts[tag], "--params", params,
+                     "--images", paths["images"], "--out",
+                     os.path.join(d, f"{tag}.npz"), *serve_flags]
+        if tag == "supervised":
+            cmds[tag] += ["--train_images", paths["train"]]
+    params_np = np.load(params, allow_pickle=True).item()
+    # the live embedders of the same weights: one seeded init, copied
+    model = load_backbone("dino_vitbase8")[0]
+    live_emb = {}
+    for tag, _, _, _ in EXPORT_CASES:
+        prec = "bfloat16" if tag == "supervised" else "default"
+        live_emb[tag] = CategoryEmbedder(
+            copy.deepcopy(model), PipelineConfig(batch_size=8,
+                                                 precision=prec),
+            device="cuda",
+            mesh=Mesh(["cuda:0"] * 2) if tag == "dp2" else None)
+    del model
+
+    first = EXPORT_CASES[0][0]
+    t0 = time.perf_counter()
+    served = {first: _served(first, _serve(cmds[first], d, env), t0)}
+    # the live path's embed + alpha of the same category, timed alone
+    emb = live_emb[first]
+    live_s = []
+    for _ in range(4):  # the first is warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        compute_alpha_X(emb(images), "unsupervised", 1.0, precision="f32",
+                        use_mesh=False, packed=True).cpu()
+        live_s.append(time.perf_counter() - t0)
+    live_med = sorted(live_s[1:])[1]
+    t0 = time.perf_counter()
+    procs = {tag: _serve(cmds[tag], d, env) for tag, _, _, _ in
+             EXPORT_CASES[1:]}
+    for tag, _, _, (want_l, want_w) in EXPORT_CASES:
+        if tag not in served:
+            served[tag] = _served(tag, procs[tag], t0)
+        s = served[tag]
+        k = s["categories"]
+        got = (s["launches"] / k, s["window_launches"] / k,
+               s["plain_calls"])
+        print(f"export {tag}: cli.export {runs[tag]['export_s']:.1f} s, "
+              f"artifact {runs[tag]['artifact_bytes']:,} bytes; serving "
+              f"host {s['host_process_s']:.1f} s (process), first category "
+              f"{s['first_s']:.3f} s"
+              + (f", {s['median_s']:.3f} s a category, "
+                 f"{s['images_per_s']:.1f} images/s (the live embed + "
+                 f"alpha {live_med:.3f} s)" if "median_s" in s else "")
+              + f"; min_dists launches a category {got[0]:g} (window "
+              f"{got[1]:g}), plain calls {got[2]} on {s['card']}",
+              flush=True)
+        if got != (want_l, want_w, 0):
+            _fatal(f"the served {tag} artifact launched {got} (symmetric/"
+                   f"rectangular, window a category; plain calls); want "
+                   f"({want_l}, {want_w}, 0)")
+        # Z: the artifact's embed program here against the live embedder
+        z_srv, meta = _served_z(torch, np, arts[tag], params_np, images)
+        z_live = live_emb[tag](images)
+        zt_srv = zt_live = None
+        if tag == "supervised":
+            zt_srv = _served_z(torch, np, arts[tag], params_np, train)[0]
+            zt_live = live_emb[tag](train)
+        z_equal = bool(torch.equal(z_srv, z_live))
+        z_gap = _rel_gap(torch, z_srv, z_live)
+        # alpha and X: the served ones against the live path on the served
+        # Z (one kernel: bit-equal) and on the live Z
+        res = np.load(os.path.join(d, f"{tag}.npz"))
+        p = meta["n_patches"]
+        srv = torch.from_numpy(np.concatenate([res["alpha"], res["X"]], 1))
+        same = _live_alpha_x(torch, tag, z_srv, zt_srv, meta).cpu()
+        live = _live_alpha_x(torch, tag, z_live, zt_live, meta).cpu()
+        ax_equal = bool(torch.equal(srv, same))
+        a_gap = float((srv[:, :p] - live[:, :p]).abs().max())
+        x_gap = float((srv[:, p:] - live[:, p:]).abs().max())
+        print(f"export {tag} ({meta['precision']}): served Z "
+              + ("bit-equal to" if z_equal else f"{z_gap:.3e} (relative L2) "
+                 "from") + " the live embedder's; served alpha/X "
+              + ("bit-equal to" if ax_equal else "NOT equal to")
+              + f" the live path's on the served Z; against the live Z: "
+              f"max |d alpha| {a_gap:.3e}, max |d X| {x_gap:.3e}",
+              flush=True)
+        if not ax_equal:
+            _fatal(f"export {tag}: the served alpha/X differ from the live "
+                   "path's on the same Z")
+        if not z_equal and not z_gap <= ZOO_GAP_BOUND:
+            _fatal(f"export {tag}: served Z {z_gap:.3e} from the live "
+                   f"embedder's, over {ZOO_GAP_BOUND}")
+        if not np.isfinite(srv.numpy()).all() or srv.shape != (n, p + 4096):
+            _fatal(f"export {tag}: served alpha/X {tuple(srv.shape)}, "
+                   "finite values wanted")
+        runs[tag].update(host_process_s=s["host_process_s"],
+                         first_s=s["first_s"], z_equal=z_equal, z_gap=z_gap,
+                         alpha_gap=a_gap, x_gap=x_gap,
+                         launches_per_category=got[0],
+                         window_launches_per_category=got[1])
+        if "median_s" in s:
+            runs[tag].update(median_s=s["median_s"],
+                             images_per_s=s["images_per_s"],
+                             live_s=live_med)
+        del z_srv, z_live, srv, same, live
+    del live_emb
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_start
+    print(f"export phase: {phase_s:.1f} s on {card}", flush=True)
+    return dict(runs=runs, phase_s=phase_s, card=card)
 
 
 # the flagship PatchCore recipe's category: MVTec bottle's 83 test images
@@ -1859,7 +2202,7 @@ def _dino_profile(torch, base_u8) -> dict:
 
 def phase_dino(torch, work: str) -> dict:
     """DINO pre-training at main_dino's recipe through cli.dino (see the
-    module docstring, phase 9)."""
+    module docstring, phase 10)."""
     import numpy as np
 
     from tpu_ac_torch.data.device_aug import build_base_cache
@@ -1938,10 +2281,12 @@ def phase_dino(torch, work: str) -> dict:
 # synthetic CIFAR-10 in its real format, cut from 50,000 train and 10,000
 # test images to SCAN_TRAIN and SCAN_TEST for the time limit: the stages
 # are host-bound (the augmentation and the dispatch), and on an H100 the
-# phase took 315 s at 50,000 and 223-245 s at 20,000.  Mining is timed at
-# the full bank, SCAN_BANK_ROWS x 128.
-SCAN_TRAIN = 10_000
-SCAN_TEST = 2_000
+# phase took 315 s at 50,000, 223-245 s at 20,000 and 176.4 s at 10,000
+# (the stages 25-30 s each as processes); 5,000 keeps the script with the
+# export phase inside 900 s.  Mining is timed at the full bank,
+# SCAN_BANK_ROWS x 128.
+SCAN_TRAIN = 5_000
+SCAN_TEST = 1_000
 SCAN_BANK_ROWS = 50_000
 SCAN_CLASSES = 10
 SCAN_AUG_IMAGES = 512
@@ -2548,7 +2893,10 @@ def _scan_profile(torch, ds, cfg) -> dict:
 
                 def thunks():
                     for i in range(first, first + n):
-                        idxs = order[i * bs:(i + 1) * bs]
+                        # the indices wrap: 10 self-label batches of 1,000
+                        # outnumber SCAN_TRAIN's images
+                        idxs = order[np.arange(i * bs, (i + 1) * bs)
+                                     % len(order)]
                         yield (lambda idxs=idxs, i=i: (
                             put(pool.stack(aug_a, ds.get_pil, idxs, epoch=i,
                                            stream="a")),
@@ -2575,7 +2923,7 @@ def _scan_profile(torch, ds, cfg) -> dict:
 
 def phase_scan(torch, work: str) -> dict:
     """SCAN at the CIFAR-10 recipe through cli.scan (see the module
-    docstring, phase 10)."""
+    docstring, phase 11)."""
     import numpy as np
 
     from tpu_ac_torch.config import CONFIG_DIR, Config, load_yaml, merge
@@ -3019,7 +3367,7 @@ def _evals_davis_times(torch, davis: str) -> dict:
 def phase_evals(torch, work: str) -> dict:
     """DINO's evaluation suite through its five CLIs in this process, at
     the recipes' full widths on their seeded inits (see the module
-    docstring, phase 11)."""
+    docstring, phase 12)."""
     import numpy as np
     from PIL import Image
 
@@ -3197,6 +3545,7 @@ def main() -> None:
         launches, run = phase_main_path(torch, dist, attn, work, root, sizes)
         flash_run = phase_flash_path(torch, dist, attn, work, root, sizes)
         mesh_run = phase_mesh_path(torch, dist, attn, work, root, sizes)
+        export_run = phase_export(torch, work, root, sizes)
         # no hand-written kernel lies on this path: the counts stay 0
         dist.LAUNCHES = dist.WINDOW_LAUNCHES = attn.LAUNCHES = 0
         pc_run = phase_patchcore(torch, work)
@@ -3326,6 +3675,7 @@ def main() -> None:
                  for k, v in dino_run.items()},
         "scan": _round6(scan_run),
         "evals": _round6(evals_run),
+        "export": _round6(export_run["runs"]),
         "mesh": {"sweep_img_s": r4(mesh_run["sweep_img_s"]),
                  "window_ms": r4(window_timing["ms"]),
                  "w_gap_over_bound": float(

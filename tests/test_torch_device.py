@@ -58,3 +58,27 @@ def test_precision_scope_sets_and_restores_tf32(precision, allow):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul
         torch.backends.cudnn.allow_tf32 = cudnn
+
+
+# card_report: the device report every measurement stands beside
+
+
+def test_card_report_parses_nvidia_smi():
+    from tpu_ac_torch.device import parse_card_report
+
+    got = parse_card_report("NVIDIA H100 80GB HBM3, 700.00 W\n")
+    assert got == {"name": "NVIDIA H100 80GB HBM3",
+                   "power_limit": "700.00 W", "count": 1,
+                   "line": "NVIDIA H100 80GB HBM3, 700.00 W"}
+    four = parse_card_report("NVIDIA H100 80GB HBM3, 500.00 W\n" * 4)
+    assert four["count"] == 4 and four["power_limit"] == "500.00 W"
+    with pytest.raises(RuntimeError, match="no card"):
+        parse_card_report("\n")
+
+
+def test_card_report_raises_without_a_card(monkeypatch):
+    from tpu_ac_torch import device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        device.card_report()

@@ -1,6 +1,8 @@
-"""The port stands alone: no file of tpu_ac_torch/, not chip_smoke.py and
-not scripts/kernel_ab.py imports jax, jaxlib or tpu_ac (as distinct from
-tpu_ac_torch), nor sklearn, which the card's machine does not have."""
+"""The port stands alone: no file of tpu_ac_torch/, not chip_smoke.py, not
+scripts/kernel_ab.py and not scripts/serving_host_torch.py imports jax,
+jaxlib or tpu_ac (as distinct from tpu_ac_torch), nor sklearn, which the
+card's machine does not have; the serving host imports nothing of
+tpu_ac_torch either."""
 
 import ast
 import os
@@ -9,11 +11,12 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BANNED = ("jax", "jaxlib", "tpu_ac", "sklearn")
+SERVING_HOST = os.path.join(ROOT, "scripts", "serving_host_torch.py")
 
 
 def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "scripts", "kernel_ab.py")]
+             os.path.join(ROOT, "scripts", "kernel_ab.py"), SERVING_HOST]
     for d, _, names in os.walk(os.path.join(ROOT, "tpu_ac_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -37,10 +40,28 @@ def test_no_jax_or_tpu_ac_import(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_serving_host_imports_no_package():
+    """scripts/serving_host_torch.py stands alone: nothing of tpu_ac or
+    tpu_ac_torch, and its ops come from the artifact; the ops' module it
+    loads from there imports only torch, numpy and the standard
+    library."""
+    assert not {m for m in _imported_roots(SERVING_HOST)
+                if m.startswith("tpu_ac")}
+    ops = os.path.join(ROOT, "tpu_ac_torch", "kernels", "distances.py")
+    with open(ops) as f:
+        tree = ast.parse(f.read(), ops)
+    top = {a.name.split(".")[0] for node in tree.body
+           if isinstance(node, ast.Import) for a in node.names}
+    top |= {node.module.split(".")[0] for node in tree.body
+            if isinstance(node, ast.ImportFrom)}
+    assert top <= {"__future__", "ctypes", "numpy", "torch"}
+
+
 def test_scan_sees_the_package():
     names = {os.path.relpath(p, ROOT) for p in _port_files()}
     assert "chip_smoke.py" in names
     assert os.path.join("scripts", "kernel_ab.py") in names
+    assert os.path.join("scripts", "serving_host_torch.py") in names
     for mod in ("kernels/distances.py", "kernels/attention.py",
                 "models/convert.py", "models/manifest.py", "cli/convert.py",
                 "hub.py", "distributed/__init__.py", "distributed/mesh.py",
@@ -64,7 +85,9 @@ def test_scan_sees_the_package():
                 "data/oxford_paris.py", "cli/eval_knn.py",
                 "cli/eval_linear.py", "cli/eval_copy_detection.py",
                 "cli/eval_image_retrieval.py",
-                "cli/eval_video_segmentation.py"):
+                "cli/eval_video_segmentation.py", "native.py",
+                "distributed/launch.py", "utils/export.py",
+                "cli/export.py"):
         assert f"tpu_ac_torch/{mod}" in names
 
 

@@ -172,3 +172,40 @@ def test_kernel_matches_plain_on_card(precision, n, off, n_local, ti, p, d):
         gap = (got[m].square() - want[m].square()).abs()
         assert bool(torch.isfinite(got[m]).all())
         assert bool((gap <= tol[m]).all())
+
+
+@pytest.mark.parametrize("off", [0, 4])
+def test_validity_masks_leave_tiles_out(off):
+    """With row and column validity masks (a dp-2 rank over a bucket of 8
+    with 6 valid images: rows and wrapped columns past 6 masked), the
+    active tiles are those of the unmasked sweep with a valid row and
+    column, equal to it there, and +inf elsewhere; the op takes the masks
+    only as bool CPU tensors of the right length."""
+    n, n_local, nv = 8, 4, 6
+    z_loc, bank_w, h = _window_inputs(n, off, n_local)
+    z_loc, bank_w = torch.from_numpy(z_loc), torch.from_numpy(bank_w)
+    w_win = bank_w.shape[0]
+    row_valid = off + torch.arange(n_local) < nv
+    col_valid = (off + 1 + torch.arange(w_win)) % n < nv
+    row, col = tdist.min_dists_window(z_loc, bank_w, window=h,
+                                      row_valid=row_valid,
+                                      col_valid=col_valid)
+    full_row, full_col = tdist.min_dists_window(z_loc, bank_w, window=h)
+    act = _active(n_local, w_win, h) & row_valid.numpy()[:, None] \
+        & col_valid.numpy()[None, :]
+    pairs = tdist.window_pairs(n_local, w_win, h, row_valid.numpy(),
+                               col_valid.numpy())
+    assert [tuple(x) for x in pairs.tolist()] == \
+        [tuple(x) for x in np.argwhere(act).tolist()]
+    assert act.sum() < _active(n_local, w_win, h).sum()
+    np.testing.assert_array_equal(row.numpy()[act], full_row.numpy()[act])
+    np.testing.assert_array_equal(col.numpy()[act.T],
+                                  full_col.numpy()[act.T])
+    assert np.isinf(row.numpy()[~act]).all()
+    assert np.isinf(col.numpy()[~act.T]).all()
+    with pytest.raises(ValueError, match="row_valid"):
+        tdist.min_dists_window(z_loc, bank_w, window=h,
+                               row_valid=row_valid.to(torch.int64))
+    with pytest.raises(ValueError, match="col_valid"):
+        tdist.min_dists_window(z_loc, bank_w, window=h,
+                               col_valid=col_valid[1:])

@@ -20,37 +20,51 @@ import math
 import numpy as np
 import torch
 
-from tpu_ac_torch.kernels.distances import min_dists_all_pairs
+from tpu_ac_torch.kernels.distances import (
+    count_tensor,
+    min_dists_all_pairs,
+)
 
 
-def weight_distance_unsupervised(Z: torch.Tensor, n_valid: int | None = None,
+def _valid_rows(n: int, nv: torch.Tensor, device) -> torch.Tensor:
+    """[n] bool: the rows below the count ``nv`` (a 0-d CPU tensor)."""
+    return torch.arange(n, device=device) < nv
+
+
+def weight_distance_unsupervised(Z: torch.Tensor, n_valid=None,
                                  precision: str = "f32") -> torch.Tensor:
     """W [N, P]: W[i,p] = mean over j != i of min_q ||Z[i,p]-Z[j,q]||.
 
-    Rows of Z beyond ``n_valid`` are padding: they are left out of the
-    sweep (no pair with a padded image is computed) and their W rows are 0.
-    The j == i term (~0: the self-distance floor of the precision mode) is
-    kept in the sum, which is divided by n_valid - 1, exactly like
-    ``tpu_ac`` and the reference's cdist path.
+    Rows of Z at or past ``n_valid`` (an int or a 0-d int64 CPU tensor, as
+    an exported program passes it) are padding: no pair with a padded
+    image is computed and their W rows are 0.  The j == i term (~0: the
+    self-distance floor of the precision mode) is kept in the sum, which is
+    divided by n_valid - 1, exactly like ``tpu_ac`` and the reference's
+    cdist path.
     """
-    n, p, _ = Z.shape
-    nv = n if n_valid is None else int(n_valid)
-    mins = min_dists_all_pairs(Z[:nv], Z[:nv], precision=precision,
-                               symmetric=True)  # [nv, nv, P]
-    w = mins.sum(dim=1) / max(nv - 1, 1)
-    if nv == n:
-        return w
-    return torch.cat([w, w.new_zeros(n - nv, p)])
+    n = Z.shape[0]
+    nv = count_tensor(n_valid, n)
+    mins = min_dists_all_pairs(Z, Z, precision=precision, symmetric=True,
+                               n_valid=nv)  # [N, N, P], +inf past nv
+    valid = _valid_rows(n, nv, Z.device)
+    w = torch.where(valid[None, :, None], mins, 0.0).sum(dim=1) \
+        / (nv - 1).clamp_min(1)
+    return torch.where(valid[:, None], w, 0.0)
 
 
 def weight_distance_supervised(Z: torch.Tensor, Z_train: torch.Tensor,
-                               n_train_valid: int | None = None,
-                               precision: str = "f32") -> torch.Tensor:
+                               n_train_valid=None, precision: str = "f32",
+                               n_valid=None) -> torch.Tensor:
     """W [N, P]: W[i,p] = min over the valid train patches of the distance
-    (train rows beyond ``n_train_valid`` are padding, left out)."""
-    ntv = Z_train.shape[0] if n_train_valid is None else int(n_train_valid)
-    mins = min_dists_all_pairs(Z, Z_train[:ntv], precision=precision)
-    return mins.amin(dim=1)
+    (train rows at or past ``n_train_valid`` are padding, left out; rows of
+    Z at or past ``n_valid`` are not computed and their W rows are 0)."""
+    n = Z.shape[0]
+    nv = count_tensor(n_valid, n)
+    mins = min_dists_all_pairs(
+        Z, Z_train, precision=precision, n_valid=nv,
+        n_bank_valid=count_tensor(n_train_valid, Z_train.shape[0]))
+    return torch.where(_valid_rows(n, nv, Z.device)[:, None],
+                       mins.amin(dim=1), 0.0)
 
 
 def alpha_from_weights(W: torch.Tensor, tau: float, k: float = 1.0

@@ -7,8 +7,9 @@ here; sklearn's ward clustering is scipy's ``hierarchy.ward`` tree cut by
 ``_hc_cut``, and its scores are closed forms over the contingency table, so
 this module computes the same values in the same order of operations
 (tests/test_torch_metrics.py holds them equal to sklearn's).  ``best_map``
-uses scipy's ``linear_sum_assignment`` on -G^T (``tpu_ac`` prefers its
-native JV solver and falls back to the same scipy call).
+solves the assignment on -G^T with the native JV solver
+(``tpu_ac_torch.native``), as ``tpu_ac`` does, and with scipy's
+``linear_sum_assignment`` on a machine without a C++ compiler.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import math
 import numpy as np
 from scipy.cluster import hierarchy
 from scipy.optimize import linear_sum_assignment
+
+from tpu_ac_torch import native
 
 
 def contingency(labels: np.ndarray, preds: np.ndarray) -> np.ndarray:
@@ -35,7 +38,12 @@ def best_map(labels: np.ndarray, preds: np.ndarray) -> np.ndarray:
     returns preds mapped into label space."""
     labels = np.asarray(labels)
     preds = np.asarray(preds)
-    rows, cols = linear_sum_assignment(-contingency(labels, preds).T)
+    cost = -contingency(labels, preds).T
+    if native.get_lib() is not None:  # tpu_ac's order: the JV solver first
+        cols, _ = native.hungarian(cost)
+        rows = np.arange(len(cols))
+    else:
+        rows, cols = linear_sum_assignment(cost)
     l1 = np.unique(labels)
     l2 = np.unique(preds)
     # pad label values when there are more clusters than label classes

@@ -1,13 +1,17 @@
-"""Device selection and the embed precision scope.
+"""Device selection, the embed precision scope and the card report.
 
 No silent CPU fallback: an entry point runs on ``cuda`` unless the caller
 asks for ``cpu``, and asking for ``cuda`` on a machine without a card
-raises.
+raises.  ``card_report`` is the part of ``tpu_ac.utils.tpu`` that has a
+meaning on the card (its backend retry and compile cache do not apply to
+CUDA): the name, count and power limit that every measurement stands
+beside.
 """
 
 from __future__ import annotations
 
 import contextlib
+import subprocess
 
 import torch
 
@@ -55,3 +59,35 @@ def precision_scope(precision: str):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul
         torch.backends.cudnn.allow_tf32 = cudnn
+
+
+CARD_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
+              "--format=csv,noheader"]
+
+
+def parse_card_report(text: str) -> dict:
+    """{"name", "power_limit", "count", "line"} from the output of
+    ``CARD_QUERY`` (one "name, limit" line a card; ``line`` is the first,
+    as nvidia-smi gives it)."""
+    lines = [ln.strip() for ln in text.strip().splitlines() if ln.strip()]
+    if not lines:
+        raise RuntimeError("nvidia-smi listed no card")
+    name, _, limit = lines[0].rpartition(",")
+    if not name:
+        raise RuntimeError(f"unexpected nvidia-smi line {lines[0]!r}")
+    return {"name": name.strip(), "power_limit": limit.strip(),
+            "count": len(lines), "line": lines[0]}
+
+
+def card_report() -> dict:
+    """The cards' name, count and power limit (``parse_card_report``), as
+    ``nvidia-smi`` reads them; raises where there is no card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card: torch.cuda.is_available() is "
+                           "false")
+    try:
+        out = subprocess.run(CARD_QUERY, capture_output=True, text=True,
+                             check=True, timeout=60).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        raise RuntimeError(f"nvidia-smi failed: {e}") from e
+    return parse_card_report(out)

@@ -15,7 +15,8 @@ the partials a sum of tensors.  A ``Mesh`` is an ordered list of
 runs on one card (its ranks one after another, each at the shape it has on
 a real mesh) or on the CPU.  A sharded array is a plain list of
 per-position shards.  ``torch.distributed`` across processes and hosts is
-not carried (``tpu_ac``'s ``multihost_init``, ``distributed/launch.py``).
+not carried (``tpu_ac``'s ``multihost_init``); the requeue launcher is
+``distributed/launch.py``.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from tpu_ac_torch.kernels.distances import (
+    count_tensor,
     min_dists_all_pairs,
     min_dists_window,
 )
@@ -113,69 +115,104 @@ def _gather(mesh: Mesh, shards: list[torch.Tensor]
             for d in mesh.distinct_devices}
 
 
-def _per_image_weights(z_local: torch.Tensor, bank: torch.Tensor,
-                       reduce_mode: str, n_valid: int,
+def per_image_weights(z_local: torch.Tensor, bank: torch.Tensor,
+                       reduce_mode: str, n_valid,
                        precision: str = "f32") -> torch.Tensor:
     """W rows [L, P] of the local images against the whole bank: the mean
     over the n_valid bank images ("mean", divided by n_valid - 1: the
-    unsupervised W, self-term included) or their min ("min")."""
-    mins = min_dists_all_pairs(z_local, bank,
-                               precision=precision)  # [L, N_bank, P]
-    valid = (torch.arange(bank.shape[0], device=bank.device)
-             < n_valid)[None, :, None]  # padded bank rows
+    unsupervised W, self-term included) or their min ("min").  ``n_valid``
+    is an int or a 0-d int64 CPU tensor; the padded bank rows are not
+    computed (+inf)."""
+    nv = count_tensor(n_valid, bank.shape[0])
+    mins = min_dists_all_pairs(z_local, bank, precision=precision,
+                               n_bank_valid=nv)  # [L, N_bank, P]
     if reduce_mode == "mean":
+        valid = (torch.arange(bank.shape[0], device=bank.device)
+                 < nv)[None, :, None]
         mins = torch.where(valid, mins, 0.0)
-        return mins.sum(dim=1) / max(n_valid - 1, 1)
-    mins = torch.where(valid, mins, float("inf"))
+        return mins.sum(dim=1) / (nv - 1).clamp_min(1)
     return mins.amin(dim=1)
 
 
-def triangle_weights_local(z_local: torch.Tensor, bank: torch.Tensor,
-                           rank: int, n_valid: int,
-                           precision: str = "f32") -> torch.Tensor:
+def _roll_rows(x: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """``torch.roll(x, shift, dims=0)`` for a 0-d CPU tensor ``shift``: a
+    gather, so that an exported program takes the shift as an input."""
+    n = x.shape[0]
+    return x.index_select(0, (torch.arange(n, device=x.device) - shift) % n)
+
+
+def triangle_partial(z_local: torch.Tensor, bank: torch.Tensor, offset,
+                     n_valid, precision: str = "f32") -> torch.Tensor:
     """One rank's share of the triangle-aware unsupervised weight sweep:
     its partial sums [N_pad, P] (not yet divided by n_valid - 1).
 
     The unsupervised distance matrix is symmetric at the tile level
     (mins[a, b] and mins[b, a] are the row- and col-mins of the same
     [P, Q] tile), so each rank sweeps a circulant window of the gathered
-    ``bank`` [N_pad, P, D]: rank d owns the rows a = d*L + r and sweeps the
-    columns b = (d*L + 1 + w) mod N_pad for w < L - 1 + H, H = N_pad // 2,
-    on the tiles of pair distance k = w - r + 1 in [1, H]: N_pad^2/(2 dp)
-    tiles a rank, every unordered pair once (the k == H pair of an even
-    N_pad is kept from the endpoint a < b).  Each tile's row-min adds to
-    W[a] and its col-min to W[b]; the caller sums the ranks' partials
-    (``tpu_ac``'s psum).  Pairs with a padded image (index >= n_valid) are
-    left out.
+    ``bank`` [N_pad, P, D]: the rank at ``offset`` owns the rows
+    a = offset + r and sweeps the columns b = (offset + 1 + w) mod N_pad
+    for w < L - 1 + H, H = N_pad // 2, on the tiles of pair distance
+    k = w - r + 1 in [1, H]: N_pad^2/(2 dp) tiles a rank, every unordered
+    pair once (the k == H pair of an even N_pad is kept from the endpoint
+    a < b).  Each tile's row-min adds to W[a] and its col-min to W[b]; the
+    caller sums the ranks' partials (``tpu_ac``'s psum).  Pairs with a
+    padded image (index >= n_valid) are left out.  ``offset`` and
+    ``n_valid`` are ints or 0-d int64 CPU tensors: one exported program
+    serves every rank and category size.
     """
     n_local, p, _ = z_local.shape
     n_pad = bank.shape[0]
     dev = z_local.device
+    off = count_tensor(offset, 0)
+    nv = count_tensor(n_valid, n_pad)
     h = n_pad // 2
     w_win = n_local - 1 + h
-    start = rank * n_local + 1
-    bank_w = torch.roll(bank, -start, dims=0)[:w_win]
+    b_glob = (off + 1 + torch.arange(w_win, device=dev)) % n_pad
+    bank_w = bank.index_select(0, b_glob)
 
+    # the rows and columns of valid images, on the host for the kernel's
+    # pair list (a count on the card would make the host wait for it)
+    row_valid = off + torch.arange(n_local) < nv
+    col_valid = (off + 1 + torch.arange(w_win)) % n_pad < nv
     row_mins, col_mins = min_dists_window(z_local, bank_w, window=h,
-                                          precision=precision)
+                                          precision=precision,
+                                          row_valid=row_valid,
+                                          col_valid=col_valid)
     r = torch.arange(n_local, device=dev)[:, None]
     w = torch.arange(w_win, device=dev)[None, :]
     k = w - r + 1  # pair distance (b - a) mod n_pad
-    a_glob = rank * n_local + torch.arange(n_local, device=dev)
-    b_glob = (start + torch.arange(w_win, device=dev)) % n_pad
+    a_glob = off + torch.arange(n_local, device=dev)
     ok = (k >= 1) & (k <= h)
     if n_pad % 2 == 0:
         # the k == H pair is swept from BOTH endpoints; keep the a < b copy
         ok &= (k < h) | (a_glob[:, None] < b_glob[None, :])
-    ok &= (a_glob[:, None] < n_valid) & (b_glob[None, :] < n_valid)
+    ok &= (a_glob[:, None] < nv) & (b_glob[None, :] < nv)
 
     row_part = torch.where(ok[:, :, None], row_mins, 0.0).sum(dim=1)
     col_part = torch.where(ok.t()[:, :, None], col_mins, 0.0).sum(dim=1)
-    partial = torch.zeros(n_pad, p, dtype=torch.float32, device=dev)
-    partial[rank * n_local:(rank + 1) * n_local] = row_part
-    # col_part[w] belongs to image b_glob[w] = (start + w) mod n_pad
-    return partial + torch.roll(F.pad(col_part, (0, 0, 0, n_pad - w_win)),
-                                start, dims=0)
+    # row_part[r] belongs to image offset + r, col_part[w] to image
+    # (offset + 1 + w) mod n_pad
+    return (_roll_rows(F.pad(row_part, (0, 0, 0, n_pad - n_local)), off)
+            + _roll_rows(F.pad(col_part, (0, 0, 0, n_pad - w_win)),
+                         off + 1))
+
+
+def triangle_weights_local(z_local: torch.Tensor, bank: torch.Tensor,
+                           rank: int, n_valid: int,
+                           precision: str = "f32") -> torch.Tensor:
+    """:func:`triangle_partial` of dp rank ``rank`` (offset rank * L)."""
+    return triangle_partial(z_local, bank, rank * z_local.shape[0], n_valid,
+                            precision)
+
+
+def combine_partials(partials: list[torch.Tensor], home: torch.device,
+                     n_valid) -> torch.Tensor:
+    """W [N_pad, P] on ``home``: the ranks' triangle partials summed in
+    rank order (``tpu_ac``'s psum) and divided by n_valid - 1."""
+    total = partials[0].to(home)
+    for part in partials[1:]:
+        total = total + part.to(home)
+    return total / (count_tensor(n_valid, 0) - 1).clamp_min(1)
 
 
 def sharded_weight_distance_unsupervised(mesh: Mesh,
@@ -205,16 +242,12 @@ def sharded_weight_distance_unsupervised(mesh: Mesh,
         scheme = "rect"
     banks = _gather(mesh, Z_sharded)
     if scheme == "rect":
-        return [_per_image_weights(z, banks[d], "mean", n_valid, precision)
+        return [per_image_weights(z, banks[d], "mean", n_valid, precision)
                 for z, d in zip(Z_sharded, mesh.devices)]
     partials = [triangle_weights_local(z, banks[d], rank, n_valid,
                                        precision)
                 for rank, (z, d) in enumerate(zip(Z_sharded, mesh.devices))]
-    home = mesh.devices[0]
-    total = partials[0].to(home)
-    for part in partials[1:]:
-        total = total + part.to(home)
-    wdist = total / max(n_valid - 1, 1)
+    wdist = combine_partials(partials, mesh.devices[0], n_valid)
     n_local = Z_sharded[0].shape[0]
     return [wdist[rank * n_local:(rank + 1) * n_local].to(d)
             for rank, d in enumerate(mesh.devices)]
@@ -228,5 +261,5 @@ def sharded_weight_distance_supervised(mesh: Mesh,
     """Supervised variant: the test images sharded over dp, the train bank
     replicated (read-only, typically small).  Returns the W shards."""
     _check_shards(mesh, Z_sharded)
-    return [_per_image_weights(z, bank, "min", Z_train.shape[0], precision)
+    return [per_image_weights(z, bank, "min", Z_train.shape[0], precision)
             for z, bank in zip(Z_sharded, replicate(mesh, Z_train))]

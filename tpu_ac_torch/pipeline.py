@@ -178,17 +178,24 @@ class CategoryEmbedder:
                    for s in range(0, host.shape[0], bs)]
         return _StagedUpload(batches, host, n)
 
-    def _embed(self, batch: torch.Tensor, model) -> torch.Tensor:
+    def embed_batch(self, batch: torch.Tensor, model) -> torch.Tensor:
+        """One batch through ``model`` (this embedder's model or a copy of
+        it): uint8 or normalized [B, 3, H, W] -> f32 [B, P, D].  No
+        precision scope and no grad mode: the caller sets them
+        (``utils/export.py EmbedProgram`` traces this)."""
         images = batch
         if images.dtype == torch.uint8:
             images = normalize_on_device(images)
         images = images.to(self._dtype)
         kw = {"attention_impl": self._attention} \
             if self._family == "vit" else {}
-        with precision_scope(self._cfg.precision), torch.inference_mode():
-            z = embed_features(self._family, model, images,
-                               self._cfg.embed_config, **kw)
+        z = embed_features(self._family, model, images,
+                           self._cfg.embed_config, **kw)
         return z.to(torch.float32)
+
+    def _embed(self, batch: torch.Tensor, model) -> torch.Tensor:
+        with precision_scope(self._cfg.precision), torch.inference_mode():
+            return self.embed_batch(batch, model)
 
     def __call__(self, images) -> torch.Tensor:
         """[N, 3, H, W] host images (or a ``stage()`` token) -> [N, P, D] f32
@@ -228,6 +235,24 @@ def _alpha_x_mesh(Z: torch.Tensor, supervised: str, tau: float,
     return alpha, weighted_embedding(alpha, Z)
 
 
+def alpha_x_padded(z: torch.Tensor, n_valid, supervised: str, tau: float,
+                   precision: str, z_train: torch.Tensor | None = None,
+                   n_train_valid=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(alpha [N_pad, P], X [N_pad, D]) f32 of a bucket-padded category on
+    one device, the valid counts ints or 0-d int64 CPU tensors (as an
+    exported program takes them): what ``compute_alpha_X`` computes before
+    it slices the padding off, and what ``utils/export.py AlphaXProgram`` exports.  Padded
+    rows get W = 0."""
+    if supervised == "supervised":
+        w = weight_distance_supervised(z, z_train, n_train_valid,
+                                       precision, n_valid=n_valid)
+    else:
+        w = weight_distance_unsupervised(z, n_valid, precision)
+    alpha = alpha_from_weights(w, tau)
+    x = weighted_embedding(alpha, z)
+    return alpha.to(torch.float32), x.to(torch.float32)
+
+
 def compute_alpha_X(Z: torch.Tensor, supervised: str, tau: float,
                     Z_train: torch.Tensor | None = None, n_bucket: int = 32,
                     use_mesh: bool | None = None, precision: str = "f32",
@@ -259,17 +284,12 @@ def compute_alpha_X(Z: torch.Tensor, supervised: str, tau: float,
     elif supervised == "supervised":
         if Z_train is None:
             raise ValueError("supervised mode requires Z_train")
-        zp = _pad_bucket(Z, n_bucket)
-        w = weight_distance_supervised(
-            zp, _pad_bucket(Z_train, n_bucket),
-            n_train_valid=Z_train.shape[0], precision=precision)
-        alpha = alpha_from_weights(w, tau)
-        x = weighted_embedding(alpha, zp)
+        alpha, x = alpha_x_padded(
+            _pad_bucket(Z, n_bucket), n, supervised, tau, precision,
+            _pad_bucket(Z_train, n_bucket), Z_train.shape[0])
     elif supervised == "unsupervised":
-        zp = _pad_bucket(Z, n_bucket)
-        w = weight_distance_unsupervised(zp, n_valid=n, precision=precision)
-        alpha = alpha_from_weights(w, tau)
-        x = weighted_embedding(alpha, zp)
+        alpha, x = alpha_x_padded(_pad_bucket(Z, n_bucket), n, supervised,
+                                  tau, precision)
     elif supervised == "average":
         alpha = matrix_alpha_average(Z)
         x = weighted_embedding(alpha, Z)
