@@ -157,7 +157,22 @@ Phases, each fatal on failure:
      ViT-S/16 extract (batch 128) and the ViT-B/8 one at 320 px (batch
      16) beside their shares of the dense TF32 peak.  No hand-written
      kernel lies on this path (asserted: no launches);
- 13. timings at the main path's shapes: each kernel beside its bound, its
+ 13. visualization: visualize_attention's array function (attention_
+     arrays: every block's CLS attention, the nearest-upsampled maps, the
+     threshold masks at 0.6, the display image, the ground truth) on a
+     bottle test image of the main path's tree, at the CLI's default arch
+     and size (dino_deitsmall8, 224 px) and at dino_vitbase8 at 224 and
+     480 px (the crop past the 256-px resize: the zero-pad branch, N =
+     3,601, 7.5 GB of attention in f32); each against the same function
+     on the CPU (224) or a float64 evaluation on the card (480) within
+     VIZ_GAP_BOUND, the masks equal outside the threshold band; the ms of
+     ViT.all_selfattentions and the peak memory; then the attention video
+     of 16 seeded 854 x 480 frames (a JPEG directory) through
+     viz.video.generate_attention_video_from_path with dino_deitsmall8
+     (N = 6,361 a frame) into a GIF (frame count and size checked),
+     frames/s, frame 0's heat map against the CPU's.  No hand-written
+     kernel lies on this path (asserted: no launches);
+ 14. timings at the main path's shapes: each kernel beside its bound, its
      plain version and a library yardstick (cdist; scaled_dot_product_
      attention, bf16 and f32), which the port never calls; for min_dists
      also cuBLAS (torch.matmul) on the same bf16 products without the min
@@ -2581,10 +2596,12 @@ def _scan_card_vs_cpu(torch, ds, cfg) -> dict:
     bsz = SCAN_VS_CPU_BATCH
     # self-label's mask: a row whose confidence lies within the two
     # devices' noise of the threshold could flip it, so the batch is the
-    # first of 8 candidates whose rows all lie 1e-4 or more from it (on the
-    # CPU), with at least one row over it
+    # first of the split's batches whose rows all lie 1e-4 or more from it
+    # (on the CPU), with at least one row over it.  After one epoch of
+    # each stage few rows pass 0.99 (train-mode BN, so the batch is
+    # searched whole): the first 8 batches of 64 held none in one run
     n_sl, thr = bsz["selflabel"], cfg.confidence_threshold
-    for first in range(0, 8 * n_sl, n_sl):
+    for first in range(0, len(ds) - n_sl + 1, n_sl):
         weak = views(WeakAugmentation(32, seed=0), n_sl, "w", first)
         with torch.no_grad():
             conf = torch.softmax(ts.clustering_forward(
@@ -3467,6 +3484,197 @@ def phase_evals(torch, work: str) -> dict:
     return run
 
 
+# The viz phase (phase 13).  visualize_attention's arrays at the CLI's
+# default arch and size, and at the main path's ViT-B/8 at 224 and at 480
+# px (the crop past the 256-px resize: the zero-pad branch, N = 3,601);
+# then the attention video of VIZ_FRAMES seeded frames at DAVIS's size.
+VIZ_RUNS = (("dino_deitsmall8", 224), ("dino_vitbase8", 224),
+            ("dino_vitbase8", 480))
+VIZ_THRESHOLD = 0.6
+VIZ_FRAMES, VIZ_FRAME_HW = 16, (480, 854)
+# The card's f32 CLS attention (TF32 off) against the CPU's or a float64
+# run, relative L2: f32's unit roundoff (6e-8) times the sqrt(n) growth of
+# a sum of n <= 3,601 terms is about 3.6e-6 a product, and the error of the
+# residual stream carries through 12 blocks of 6 products each; 1e-4 holds
+# that with room, while a wrong mask, scale or prefix moves the maps at
+# O(1).  The threshold masks may differ only where an element's cumulative
+# mass lies within this bound (plus its own mass) of 1 - threshold.
+VIZ_GAP_BOUND = 1e-4
+
+
+def _viz_mask_check(np, cli, got, want, label: str) -> int:
+    """The final block's threshold masks of ``got`` [nh, N] against
+    ``want``'s: equal outside the band (VIZ_GAP_BOUND); returns the
+    number of elements inside it."""
+    share, cum = cli.cumulative_mass(want)
+    band = np.abs(cum - (1 - VIZ_THRESHOLD)) <= share + VIZ_GAP_BOUND
+    g = cli.threshold_masks(got, VIZ_THRESHOLD)
+    w = cli.threshold_masks(want, VIZ_THRESHOLD)
+    bad = int((g != w)[~band].sum())
+    if bad:
+        _fatal(f"{label}: {bad} threshold-mask elements differ outside the "
+               f"band of {VIZ_GAP_BOUND}")
+    return int(band.sum())
+
+
+def _viz_cls_f64(torch, model, chw):
+    """Every block's CLS rows [depth, nh, N] of a float64 evaluation of
+    ``model`` (moved to float64 in place) on the card."""
+    skip = model.cfg.num_prefix_tokens
+    model.double()
+    with torch.inference_mode():
+        x = model.prepare_tokens(torch.from_numpy(chw[None]).cuda().double())
+        rows = []
+        for blk in model.blocks:
+            attn, x = blk(x, return_attention=True)
+            rows.append(attn[0, :, 0, skip:])
+            del attn
+        return torch.stack(rows).cpu().numpy()
+
+
+def phase_viz(torch, root: str, work: str) -> dict:
+    """The visualization layer on the card (module docstring, phase 13):
+    visualize_attention's array function and the attention video."""
+    import numpy as np
+    from PIL import Image
+
+    from tpu_ac_torch.cli import visualize_attention as cli
+    from tpu_ac_torch.models.registry import load_backbone
+    from tpu_ac_torch.viz import video
+
+    t_start = time.perf_counter()
+    # a path relative to the tree: the CLI finds the ground truth by
+    # replacing every "test" in the path, as the reference does
+    rel = os.path.join("bottle", "test", "broken_large", "000.png")
+    runs: dict = {}
+    models: dict = {}
+    with contextlib.chdir(root):
+        if not os.path.isfile(rel.replace("test", "ground_truth")
+                              .replace(".png", "_mask.png")):
+            _fatal(f"viz: no ground-truth mask for {rel}")
+        for name, size in VIZ_RUNS:
+            if name not in models:
+                models[name] = load_backbone(name)[0]
+            model = models[name]
+            label = f"viz {name} {size} px"
+            want = None
+            if size == 224:  # the same function on the CPU
+                want = cli.attention_arrays(model, rel, (size, size),
+                                            VIZ_THRESHOLD, "cpu")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            got = cli.attention_arrays(model, rel, (size, size),
+                                       VIZ_THRESHOLD, "cuda")
+            arrays_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            chw = got["image"]
+            x = torch.from_numpy(chw[None]).cuda()
+
+            def attn_all(model=model, x=x):
+                with torch.inference_mode():
+                    model.all_selfattentions(x)
+
+            ms, host_ms = _time_ms(attn_all, reps=3 if size > 256 else 5)
+            n = chw.shape[1] // model.cfg.patch_size * (
+                chw.shape[2] // model.cfg.patch_size)
+            depth, nh = model.cfg.depth, model.cfg.num_heads
+            if got["cls_attn"].shape != (depth, nh, n) or not np.isfinite(
+                    got["cls_attn"]).all() or got["gt"] is None \
+                    or got["maps"].shape != (depth, nh, size, size) \
+                    or got["th_attn_up"].shape != (nh, size, size):
+                _fatal(f"{label}: cls {got['cls_attn'].shape}, maps "
+                       f"{got['maps'].shape}, gt {got['gt'] is not None}")
+            if want is None:  # 480: a float64 evaluation on the card
+                t0 = time.perf_counter()
+                ref = _viz_cls_f64(torch, model, chw)
+                ref_s = time.perf_counter() - t0
+                model.float()
+                yardstick = "float64 on the card"
+            else:
+                ref, ref_s, yardstick = want["cls_attn"], None, "the CPU"
+            gap = _rel_gap(torch, torch.from_numpy(got["cls_attn"]),
+                           torch.from_numpy(ref.astype(np.float32)))
+            if want is not None and not (
+                    np.array_equal(got["disp"], want["disp"])
+                    and np.array_equal(chw, want["image"])):
+                _fatal(f"{label}: the input or display image differs from "
+                       "the CPU's")
+            if not gap <= VIZ_GAP_BOUND:
+                _fatal(f"{label}: CLS attention {gap:.3e} from {yardstick} "
+                       f"(relative L2), bound {VIZ_GAP_BOUND}")
+            in_band = _viz_mask_check(np, cli, got["cls_attn"][-1],
+                                      ref[-1].astype(np.float32), label)
+            n_tok = n + model.cfg.num_prefix_tokens
+            share = _vit_flops(model.cfg, size, size) / (ms * 1e-3) \
+                / PEAK_F32_FLOPS
+            runs[f"{name}_{size}"] = dict(
+                tokens=n_tok, all_selfattentions_ms=ms,
+                all_selfattentions_host_ms=host_ms, arrays_s=arrays_s,
+                peak_gib=(peak - base) / 2**30, gap=gap,
+                yardstick=yardstick, mask_band_elements=in_band,
+                reference_s=ref_s, flops_share_f32=share)
+            print(f"{label}: N = {n_tok}, all_selfattentions {ms:.2f} ms "
+                  f"(host {host_ms:.2f} ms), {100 * share:.1f}% "
+                  f"of the f32 peak; attention_arrays {arrays_s:.2f} s; "
+                  f"peak {(peak - base) / 2**30:.2f} GiB over the "
+                  f"{base / 2**30:.2f} GiB already held; CLS rows {gap:.3e} "
+                  f"from {yardstick} (bound {VIZ_GAP_BOUND}); masks at "
+                  f"{VIZ_THRESHOLD} equal outside {in_band} band elements",
+                  flush=True)
+
+    # the video: seeded frames at DAVIS's size, a directory of JPEGs
+    frames_dir = os.path.join(work, "viz", "frames")
+    os.makedirs(frames_dir)
+    rng = np.random.default_rng(13)
+    for i, a in enumerate(_smooth_images(rng, VIZ_FRAMES, VIZ_FRAME_HW)):
+        Image.fromarray(a).save(os.path.join(frames_dir, f"{i:05d}.jpg"),
+                            quality=95)
+    model = models["dino_deitsmall8"]
+    out = os.path.join(work, "viz", "video.gif")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = video.generate_attention_video_from_path(model, frames_dir, out,
+                                                    device="cuda")
+    video_s = time.perf_counter() - t0
+    gif = Image.open(path)
+    ps = model.cfg.patch_size
+    hw = tuple(d - d % ps for d in VIZ_FRAME_HW)
+    if path != out or gif.n_frames != VIZ_FRAMES or gif.size != hw[::-1]:
+        _fatal(f"viz video: {path}, {gif.n_frames} frames of {gif.size}")
+    raw = [np.asarray(Image.open(os.path.join(frames_dir, f)).convert("RGB"))
+           for f in sorted(os.listdir(frames_dir))]
+    frames = video.preprocess_frames(raw, ps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    heat = video.render_attention_frames(model, frames, "mean", "cuda")
+    render_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    video.write_video(heat, os.path.join(work, "viz", "again.gif"), 10)
+    write_s = time.perf_counter() - t0
+    cpu = video.render_attention_frames(model, frames[:1], "mean", "cpu")[0]
+    frame_gap = _rel_gap(torch, torch.from_numpy(heat[0]),
+                         torch.from_numpy(cpu))
+    if not frame_gap <= VIZ_GAP_BOUND:
+        _fatal(f"viz video: frame 0's heat map {frame_gap:.3e} from the "
+               f"CPU's, bound {VIZ_GAP_BOUND}")
+    n_tok = hw[0] // ps * (hw[1] // ps) + model.cfg.num_prefix_tokens
+    runs["video"] = dict(frames=VIZ_FRAMES, tokens=n_tok, video_s=video_s,
+                         frames_per_s=VIZ_FRAMES / video_s,
+                         render_frames_per_s=VIZ_FRAMES / render_s,
+                         gif_write_s=write_s, frame_gap=frame_gap)
+    print(f"viz video: {VIZ_FRAMES} frames of {hw[1]} x {hw[0]} (N = "
+          f"{n_tok}, dino_deitsmall8) -> GIF in {video_s:.2f} s, "
+          f"{VIZ_FRAMES / video_s:.2f} frames/s (render alone "
+          f"{VIZ_FRAMES / render_s:.2f} frames/s, the GIF writer "
+          f"{write_s:.2f} s); frame 0's heat map {frame_gap:.3e} from the "
+          f"CPU's (bound {VIZ_GAP_BOUND})", flush=True)
+    runs["phase_s"] = time.perf_counter() - t_start
+    print(f"viz phase: {runs['phase_s']:.1f} s", flush=True)
+    return runs
+
+
 def _round6(tree):
     """``tree`` with every float at 6 significant digits."""
     if isinstance(tree, dict):
@@ -3575,6 +3783,12 @@ def main() -> None:
         if evals_launches:
             _fatal(f"the eval path launched {evals_launches} kernels of the "
                    "clustering path")
+        dist.LAUNCHES = dist.WINDOW_LAUNCHES = attn.LAUNCHES = 0
+        viz_run = phase_viz(torch, root, work)
+        viz_launches = dist.LAUNCHES + dist.WINDOW_LAUNCHES + attn.LAUNCHES
+        if viz_launches:
+            _fatal(f"the viz path launched {viz_launches} kernels of the "
+                   "clustering path")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # the supervised run pads its 84 queries to the 32-image bucket (96)
@@ -3676,6 +3890,7 @@ def main() -> None:
         "scan": _round6(scan_run),
         "evals": _round6(evals_run),
         "export": _round6(export_run["runs"]),
+        "viz": _round6(viz_run),
         "mesh": {"sweep_img_s": r4(mesh_run["sweep_img_s"]),
                  "window_ms": r4(window_timing["ms"]),
                  "w_gap_over_bound": float(

@@ -1,8 +1,10 @@
-"""The port stands alone: no file of tpu_ac_torch/, not chip_smoke.py, not
-scripts/kernel_ab.py and not scripts/serving_host_torch.py imports jax,
-jaxlib or tpu_ac (as distinct from tpu_ac_torch), nor sklearn, which the
-card's machine does not have; the serving host imports nothing of
-tpu_ac_torch either."""
+"""The port stands alone: no file of tpu_ac_torch/, not chip_smoke.py and
+not scripts/{kernel_ab,serving_host_torch,alpha_ab}.py imports jax, jaxlib
+or tpu_ac (as distinct from tpu_ac_torch), nor sklearn, which the card's
+machine does not have; the serving host imports nothing of tpu_ac_torch
+either.  No module of tpu_ac_torch/ imports matplotlib, cv2 or skimage
+when it is imported (only inside the functions that draw): the card's
+machine has none of them."""
 
 import ast
 import os
@@ -11,12 +13,14 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BANNED = ("jax", "jaxlib", "tpu_ac", "sklearn")
+DRAWING = ("matplotlib", "cv2", "skimage")
 SERVING_HOST = os.path.join(ROOT, "scripts", "serving_host_torch.py")
 
 
 def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "scripts", "kernel_ab.py"), SERVING_HOST]
+             os.path.join(ROOT, "scripts", "kernel_ab.py"), SERVING_HOST,
+             os.path.join(ROOT, "scripts", "alpha_ab.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "tpu_ac_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -38,6 +42,38 @@ def _imported_roots(path):
 def test_no_jax_or_tpu_ac_import(path):
     bad = sorted({m for m in _imported_roots(path) if m in BANNED})
     assert not bad, f"{path} imports {bad}"
+
+
+def _import_time_roots(path):
+    """Roots of the imports that run when ``path`` is imported: every
+    statement outside a function body."""
+    with open(path) as f:
+        todo = list(ast.parse(f.read(), path).body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            continue
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        todo.extend(ast.iter_child_nodes(node))
+
+
+def test_no_drawing_import_at_module_level():
+    pkg = os.path.join(ROOT, "tpu_ac_torch")
+    bad = {}
+    for path in _port_files():
+        if path.startswith(pkg + os.sep):
+            mods = sorted({m for m in _import_time_roots(path)
+                           if m in DRAWING})
+            if mods:
+                bad[os.path.relpath(path, ROOT)] = mods
+    assert not bad, bad
+    # the scan sees the imports it must refuse
+    viz = os.path.join(pkg, "viz", "plots.py")
+    assert "matplotlib" in set(_imported_roots(viz))
 
 
 def test_serving_host_imports_no_package():
@@ -62,6 +98,7 @@ def test_scan_sees_the_package():
     assert "chip_smoke.py" in names
     assert os.path.join("scripts", "kernel_ab.py") in names
     assert os.path.join("scripts", "serving_host_torch.py") in names
+    assert os.path.join("scripts", "alpha_ab.py") in names
     for mod in ("kernels/distances.py", "kernels/attention.py",
                 "models/convert.py", "models/manifest.py", "cli/convert.py",
                 "hub.py", "distributed/__init__.py", "distributed/mesh.py",
@@ -87,7 +124,9 @@ def test_scan_sees_the_package():
                 "cli/eval_image_retrieval.py",
                 "cli/eval_video_segmentation.py", "native.py",
                 "distributed/launch.py", "utils/export.py",
-                "cli/export.py"):
+                "cli/export.py", "viz/__init__.py", "viz/plots.py",
+                "viz/video.py", "cli/draw.py", "cli/visualize_attention.py",
+                "cli/video_generation.py", "tutorial.py"):
         assert f"tpu_ac_torch/{mod}" in names
 
 

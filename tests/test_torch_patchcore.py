@@ -8,7 +8,8 @@ package, fit/predict on seeded images: scores to 1e-5 relative, masks to
 CLI: both CLIs on one synthetic MVTec tree (6 train, 12 test images at
 64 px) with a tiny bottleneck ResNet registered under one name in both
 registries, layer2 + layer3, patchsize 3, the default approximate greedy
-coreset (10%) and k = 5, ``--compute_pro``.  The results.csv columns must
+coreset (10%) and k = 5, ``--compute_pro``, ``--save_segmentation_images``
+(the same figure files).  The results.csv columns must
 agree to 1e-3 absolute (a rank flip between two near-equal scores is
 allowed); the port's images upload as uint8 and normalize on the device,
 tpu_ac's normalize on the host, the same f32 arithmetic in both.  Saved
@@ -122,7 +123,7 @@ def runs(tmp_path_factory):
                             ("torch", torch_cli, ["--device", "cpu"])):
         out = str(tmp_path_factory.mktemp(tag))
         cli([out, "--data_path", root, *COMMON, "--save_patchcore_model",
-             *extra])
+             "--save_segmentation_images", *extra])
         outs[tag] = out
     return root, outs
 
@@ -176,10 +177,13 @@ def test_load_path_across_packages(runs, direction, tmp_path):
 
 def test_cli_defaults_to_cuda_and_refuses_segmentation_images(runs,
                                                               tmp_path):
-    root, _ = runs
+    """The CLI defaults to cuda; --save_segmentation_images writes the
+    same figures as tpu_ac's (both runs of ``runs`` pass it)."""
+    root, outs = runs
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             torch_cli([str(tmp_path), "--data_path", root, *COMMON])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        torch_cli([str(tmp_path), "--data_path", root, *COMMON,
-                   "--save_segmentation_images", "--device", "cpu"])
+    d = os.path.join("segmentation_images", "bottle")
+    names = sorted(os.listdir(os.path.join(outs["jax"], d)))
+    assert sorted(os.listdir(os.path.join(outs["torch"], d))) == names
+    assert names == [f"segmentation_{i:04d}.png" for i in range(12)]

@@ -1,11 +1,14 @@
 """Two flags of tpu_ac that the port lacked: ``cli.evaluate --visualize``
-(accepted, and it raises naming the viz port's ROADMAP item) and
+(it parses, and with a stage-1 pickle writes one alpha figure per anomaly
+type; ``tests/test_torch_viz_clis.py`` holds its figures to tpu_ac's) and
 ``MVTecDataset(train_val_split=...)`` with the VAL split, which lists the
 same files as tpu_ac's on a synthetic tree."""
 
 import os
+import pickle
 import shutil
 
+import numpy as np
 import pytest
 
 from tpu_ac.data import make_synthetic_mvtec
@@ -15,12 +18,34 @@ from tpu_ac_torch.cli.evaluate import main as torch_eval
 from tpu_ac_torch.data import mvtec as tmvtec
 
 
-def test_evaluate_visualize_parses_and_raises(tmp_path):
+def test_evaluate_visualize_parses_and_raises(tree, tmp_path):
+    """--visualize parses and runs: no raise, one figure per anomaly type
+    of bottle under visualize/<run-name>/."""
     args = build_parser().parse_args(["--visualize"])
     assert args.visualize
     assert not build_parser().parse_args([]).visualize
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        torch_eval(["--visualize", "--output_dir", str(tmp_path)])
+    n = len(tmvtec.MVTecDataset(tree, "bottle",
+                                split=tmvtec.DatasetSplit.TEST))
+    d = os.path.join(str(tmp_path), "mvtec_ad", "vit", "unsupervised",
+                     "blocks.1_8_8_1.0_1.0")
+    os.makedirs(d)
+    rng = np.random.default_rng(0)
+    with open(os.path.join(d, "matrix_alpha_X_bottle_unsupervised.pickle"),
+              "wb") as f:
+        pickle.dump((rng.random((n, 1, 4)).astype(np.float32),
+                     rng.random((n, 8)).astype(np.float32)), f)
+    torch_eval(["--visualize", "--path", tree, "--output_dir",
+                str(tmp_path), "--backbone_names", "vit",
+                "--layers_to_extract_from", "blocks.1",
+                "--pretrain_embed_dimension", "8",
+                "--target_embed_dimension", "8", "--tau_list", "1.0",
+                "--supervised_modes", "unsupervised", "--categories",
+                "bottle"])
+    vis = os.path.join(str(tmp_path), "mvtec_ad", "visualize",
+                       "vit_8_8_blocks.1_1.0_unsupervised")
+    assert sorted(os.listdir(vis)) == [
+        "bottle_broken_large.png", "bottle_contamination.png",
+        "bottle_good.png"]
 
 
 @pytest.fixture(scope="module")

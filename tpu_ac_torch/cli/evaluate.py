@@ -4,8 +4,9 @@
 Loads the (alpha, X) pickles of stage 1, runs agglomerative clustering and
 Hungarian relabeling per category, and writes the tau-sweep CSV with the
 category-size-weighted MVTec(object)/MVTec(texture) rows.  Host-only work:
-no device is used.  ``--visualize`` (alpha heat maps, ``tpu_ac.viz``) is
-accepted and raises: the viz port is ROADMAP Queue 1 item 13.
+no device is used.  ``--visualize`` saves per-anomaly-type alpha heat maps
+during the sweep (``viz.plots.visualize_sweep_alpha``) under
+``<output_dir>/<dataset>/visualize/<run-name>/``, as ``tpu_ac``'s does.
 """
 
 from __future__ import annotations
@@ -35,6 +36,25 @@ def category_labels(source: str, category: str) -> list[str]:
     return [it.anomaly for it in ds.items]
 
 
+def export_alpha_heatmaps(pickle_path: str, source: str, category: str,
+                          args, supervised: str, tau) -> list[str]:
+    """--visualize: per-anomaly-type alpha heatmaps during the sweep
+    (examples/test.py:158-174); saved under
+    <output_dir>/<dataset>/visualize/<run-name>/."""
+    from tpu_ac_torch.viz.plots import visualize_sweep_alpha
+
+    alpha, _x = load_alpha_X(pickle_path)
+    alpha = alpha[:, 0] if alpha.ndim == 3 else alpha
+    ds = MVTecDataset(source, classname=category, split=DatasetSplit.TEST)
+    run_name = (f"{args.backbone_names[0]}_{args.pretrain_embed_dimension}_"
+                f"{args.target_embed_dimension}_"
+                + "_".join(args.layers_to_extract_from)
+                + f"_{float(tau)}_{supervised}")
+    out_dir = os.path.join(args.output_dir, args.dataset, "visualize",
+                           run_name)
+    return visualize_sweep_alpha(alpha, ds.items, out_dir)
+
+
 def evaluate_category(pickle_path: str, anomaly_labels: list[str]
                       ) -> tuple[dict, int]:
     """One calculate_metrics call: returns (scores, n_kept)."""
@@ -44,10 +64,6 @@ def evaluate_category(pickle_path: str, anomaly_labels: list[str]
 
 
 def run_sweep(args) -> None:
-    if args.visualize:
-        raise NotImplementedError(
-            "--visualize needs the viz port, which is not done yet "
-            "(ROADMAP.md Queue 1 item 13)")
     for supervised in args.supervised_modes:
         out_path = os.path.join(args.output_dir, args.dataset,
                                 args.backbone_names[0], supervised)
@@ -92,6 +108,11 @@ def run_sweep(args) -> None:
                         if category not in label_cache:
                             label_cache[category] = category_labels(
                                 args.path, category)
+                        if args.visualize:
+                            for fp in export_alpha_heatmaps(
+                                    p, args.path, category, args,
+                                    supervised, tau):
+                                print(f"{fp} saved.")
                         scores, n = evaluate_category(p, label_cache[category])
                         print(f"{category} tau={tau} {supervised}: {scores}")
                         writer.writerow([category, scores["NMI"],
@@ -130,8 +151,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gbk", action="store_true",
                    help="Write the CSV GBK-encoded like the reference.")
     p.add_argument("--visualize", action="store_true",
-                   help="Per-anomaly-type alpha heat maps (not ported: "
-                        "raises).")
+                   help="Export per-anomaly-type alpha heatmap figures "
+                        "during the sweep (examples/test.py:158-174).")
     return p
 
 

@@ -17,8 +17,9 @@ runs as ``tpu_ac`` runs it: a ViT at full f32; any other family at its
 ``tpu_ac`` forward's own default (TF32 allowed on the card for a ResNet,
 VGG, DenseNet, EfficientNet or ResNetV2, full f32 for the trunks whose
 ``trunk_precision`` is "highest"), with its tail at full f32.
-``--save_segmentation_images`` needs the viz port (ROADMAP.md Queue 1
-item 13) and raises.
+``--save_segmentation_images`` writes each test image's image / ground
+truth / heat-map figure under ``RESULTS/segmentation_images/<category>/``
+(``viz.plot_segmentation_images``), as ``tpu_ac``'s does.
 """
 
 from __future__ import annotations
@@ -60,7 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log_group", default="group")
     p.add_argument("--log_project", default="project")
     p.add_argument("--save_segmentation_images", action="store_true",
-                   help="not ported yet (ROADMAP.md Queue 1 item 13): raises")
+                   help="save image / ground truth / heat-map figures per "
+                        "test image (models/patchcore/utils.py:18-77)")
     p.add_argument("--compute_pro", action="store_true",
                    help="Also report the PRO score (per-region overlap AUC "
                         "at FPR<=0.3, Bergmann et al.) as a full_pro "
@@ -173,10 +175,6 @@ def _minmax(x: np.ndarray) -> np.ndarray:
 
 
 def run(args) -> list[dict]:
-    if args.save_segmentation_images:
-        raise NotImplementedError(
-            "--save_segmentation_images needs the viz port, which is not "
-            "done yet (ROADMAP.md Queue 1 item 13)")
     backbones = args.backbone_names or ["wideresnet50"]
     layers = args.layers_to_extract_from or ["layer2", "layer3"]
     subdatasets = args.subdatasets or CLASSNAMES
@@ -231,6 +229,15 @@ def run(args) -> list[dict]:
         else:
             pixel_auroc = float("nan")
             anomaly_pixel_auroc = float("nan")
+        if args.save_segmentation_images:
+            from tpu_ac_torch.viz import plot_segmentation_images
+
+            plot_segmentation_images(
+                os.path.join(args.results_path, "segmentation_images",
+                             category),
+                [it.image_path for it in test_ds.items], segs,
+                anomaly_scores=scores,
+                mask_paths=[it.mask_path for it in test_ds.items])
         row = {"dataset_name": f"mvtec_{category}",
                "instance_auroc": image_metrics["auroc"],
                "full_pixel_auroc": pixel_auroc,

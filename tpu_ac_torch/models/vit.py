@@ -21,6 +21,9 @@ padded JAX forward equals the unpadded one on the real tokens
 are not carried: they change compilation, not results.  ``forward_cls``
 (the DINO training forward) takes ``tpu_ac``'s ``remat``: activation
 checkpointing of each block, which trades recompute for memory.
+``index_selfattention``, ``last_selfattention`` and ``all_selfattentions``
+return the softmax maps (``tpu_ac``'s ``vit_*_selfattention``) in f32 with
+TF32 off, always from the dense attention.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint as ckpt
 from torch import nn
 
+from tpu_ac_torch.device import precision_scope
 from tpu_ac_torch.kernels.attention import flash_attention_impl
 from tpu_ac_torch.ops.interpolate import interpolate_bicubic
 from tpu_ac_torch.ops.linear import torch_linear
@@ -185,13 +189,18 @@ class _Attention(nn.Module):
         self.qkv = _Linear(d, 3 * d, cfg.qkv_bias)
         self.proj = _Linear(d, d)
 
-    def forward(self, x: torch.Tensor,
-                attention_impl: str | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attention_impl: str | None = None,
+                return_attention: bool = False):
+        """[B, N, D] -> [B, N, D]; with ``return_attention`` the pair
+        (softmax probabilities [B, nh, N, N], output), from the dense path
+        whatever ``attention_impl`` says: a flash kernel never forms the
+        probabilities (``tpu_ac``'s ``block_forward`` does the same)."""
         b, n, d = x.shape
         nh, hd = self.cfg.num_heads, self.cfg.head_dim
         qkv = self.qkv(x).reshape(b, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]  # each [B, nh, N, hd], strided
-        if attention_impl == "flash":
+        attn = None
+        if attention_impl == "flash" and not return_attention:
             # the kernel reads the strided views as they are and writes
             # [B, N, nh, hd] storage, so the reshape below copies nothing
             out = flash_attention_impl(q, k, v, self.cfg.scale)
@@ -201,7 +210,8 @@ class _Attention(nn.Module):
             attn = torch.matmul(q, k.transpose(-2, -1)) * self.cfg.scale
             attn = torch.softmax(attn, dim=-1)
             out = torch.matmul(attn, v)
-        return self.proj(out.transpose(1, 2).reshape(b, n, d))
+        out = self.proj(out.transpose(1, 2).reshape(b, n, d))
+        return (attn, out) if return_attention else out
 
 
 class _Mlp(nn.Module):
@@ -225,8 +235,15 @@ class _Block(nn.Module):
         self.norm2 = _LayerNorm(d, cfg.ln_eps)
         self.mlp = _Mlp(d, int(d * cfg.mlp_ratio))
 
-    def forward(self, x: torch.Tensor,
-                attention_impl: str | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attention_impl: str | None = None,
+                return_attention: bool = False):
+        """The block's output; with ``return_attention`` the pair
+        (attention [B, nh, N, N], output) from one evaluation
+        (``tpu_ac``'s ``return_attention_and_output``)."""
+        if return_attention:
+            attn, y = self.attn(self.norm1(x), attention_impl, True)
+            x = x + y
+            return attn, x + self.mlp(self.norm2(x))
         x = x + self.attn(self.norm1(x), attention_impl)
         return x + self.mlp(self.norm2(x))
 
@@ -357,3 +374,40 @@ class ViT(nn.Module):
             if i >= self.cfg.depth - n:
                 outs.append(self.norm(x))
         return outs
+
+    def index_selfattention(self, images: torch.Tensor,
+                            index: int) -> torch.Tensor:
+        """Softmax attention [B, nh, N+prefix, N+prefix] of block ``index``
+        (``tpu_ac``'s ``vit_index_selfattention``, the Anomaly-Clustering
+        fork's get_index_selfattention), in f32 with TF32 off
+        (``Precision.HIGHEST``); the blocks after ``index`` do not run."""
+        if not 0 <= index < self.cfg.depth:
+            raise ValueError(f"block index {index} outside depth "
+                             f"{self.cfg.depth}")
+        with precision_scope("highest"):
+            x = self.prepare_tokens(images)
+            for blk in self.blocks[:index]:
+                x = blk(x)
+            blk = self.blocks[index]
+            return blk.attn(blk.norm1(x), None, True)[0]
+
+    def last_selfattention(self, images: torch.Tensor) -> torch.Tensor:
+        """Attention of the final block (``vit_last_selfattention``)."""
+        return self.index_selfattention(images, self.cfg.depth - 1)
+
+    def all_selfattentions(self, images: torch.Tensor) -> torch.Tensor:
+        """[depth, B, nh, N+prefix, N+prefix] attention of every block from
+        one forward, each block evaluated once (``tpu_ac``'s
+        ``vit_all_selfattentions``), in f32 with TF32 off.  Each block's
+        map is copied into one preallocated tensor as it is made, so the
+        peak is the result plus one block's temporaries."""
+        with precision_scope("highest"):
+            x = self.prepare_tokens(images)
+            out = None
+            for i, blk in enumerate(self.blocks):
+                attn, x = blk(x, return_attention=True)
+                if out is None:
+                    out = attn.new_empty((self.cfg.depth, *attn.shape))
+                out[i].copy_(attn)
+                del attn
+            return out

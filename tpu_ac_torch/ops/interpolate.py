@@ -1,12 +1,13 @@
 """torch-exact spatial resampling from static tables (port of
-``tpu_ac.ops.interpolate``, bilinear and bicubic).
+``tpu_ac.ops.interpolate``).
 
 Bilinear (align_corners=False) aligns coarser feature grids; bicubic with
-a ``scale_factor`` (a = -0.75) resizes the ViT positional embedding.  The
-index/weight tables are the ``tpu_ac`` ones, so both packages resample
-with identical taps: half-pixel centres, ``scale = 1/scale_factor`` when a
-scale factor is given, negative source clamped for linear but not cubic,
-per-tap border clamping for cubic.
+a ``scale_factor`` (a = -0.75) resizes the ViT positional embedding;
+nearest upsamples attention and alpha maps to the image.  The index/weight
+tables are the ``tpu_ac`` ones, so both packages resample with identical
+taps: half-pixel centres, ``scale = 1/scale_factor`` when a scale factor
+is given, negative source clamped for linear but not cubic, per-tap border
+clamping for cubic; nearest takes ``floor(out * scale)``, clamped.
 """
 
 from __future__ import annotations
@@ -60,6 +61,24 @@ def _cubic_tables(in_size: int, out_size: int, scale_factor: float | None):
     taps = np.clip(np.stack([i0 - 1, i0, i0 + 1, i0 + 2], axis=-1),
                    0, in_size - 1)
     return taps, _cubic_kernel(src - i0).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=256)
+def _nearest_tables(in_size: int, out_size: int,
+                    scale_factor: float | None) -> np.ndarray:
+    """[out] source index of each output row for 1-D nearest resampling."""
+    scale = 1.0 / scale_factor if scale_factor is not None \
+        else in_size / out_size
+    idx = np.floor(np.arange(out_size, dtype=np.float64) * scale)
+    return np.minimum(idx, in_size - 1).astype(np.int64)
+
+
+@functools.lru_cache(maxsize=256)
+def _device_index(in_size: int, out_size: int, scale_factor: float | None,
+                  device: torch.device) -> torch.Tensor:
+    """``_nearest_tables`` on ``device``, copied there once."""
+    return torch.from_numpy(
+        _nearest_tables(in_size, out_size, scale_factor)).to(device)
 
 
 @functools.lru_cache(maxsize=256)
@@ -147,3 +166,21 @@ def interpolate_bicubic(x: torch.Tensor, size: tuple[int, int] | None = None,
     sf_h, sf_w = scale_factor if scale_factor is not None else (None, None)
     out = _resample_axis(x, x.ndim - 2, _cubic_tables, size[0], sf_h)
     return _resample_axis(out, x.ndim - 1, _cubic_tables, size[1], sf_w)
+
+
+def interpolate_nearest(x: torch.Tensor, size: tuple[int, int] | None = None,
+                        scale_factor: tuple[float, float] | None = None
+                        ) -> torch.Tensor:
+    """F.interpolate(mode="nearest") over the last 2 axes, with
+    ``tpu_ac``'s index tables (a gather: exact for any dtype)."""
+    h, w_in = x.shape[-2], x.shape[-1]
+    if size is None:
+        if scale_factor is None:
+            raise ValueError("interpolate_nearest needs size or scale_factor")
+        size = (int(np.floor(h * scale_factor[0])),
+                int(np.floor(w_in * scale_factor[1])))
+    sf_h, sf_w = scale_factor if scale_factor is not None else (None, None)
+    out = torch.index_select(x, x.ndim - 2,
+                             _device_index(h, size[0], sf_h, x.device))
+    return torch.index_select(out, x.ndim - 1,
+                              _device_index(w_in, size[1], sf_w, x.device))
