@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port (tpu_ac_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --scaling N   # on a host of N cards, see
+                                        # phase_scaling
 
 Phases, each fatal on failure:
   1. card: name and power limit (nvidia-smi), torch/CUDA versions;
@@ -16,8 +18,9 @@ Phases, each fatal on failure:
      flash_attention: bf16 and f32 (3xTF32) on the strided q/k/v views of a
      packed qkv, at the main path's [8, 12, 785, 64], at S = 1, 17, 26,
      127, 128, 129, 130 (the cp.async tiles' edges), at S=256 with a
-     segment mask over the last 56 keys, and at head dims 16, 32, 48
-     (zero-padded to 64);
+     segment mask over the last 56 keys, at head dims 16, 32, 48
+     (zero-padded to 64) and 80, 128, 200 (padded to a multiple of 64,
+     one launch per 64-column slice of V; at S = 785 and with the mask);
   4. main path: a synthetic MVTec tree of two categories (84 and 168 test
      images, 256 px sources) through tpu_ac_torch.cli.main with the CLI
      defaults (ViT-B/8 full width on its seeded random init, blocks.10+11,
@@ -91,7 +94,7 @@ Phases, each fatal on failure:
      symmetric min_dists launches counted (the counts set to 0 before
      it), embed ms/image, sweep img/s and the peak memory; each model
      freed before the next; then python -m tpu_ac_torch.cli.main and
-     cli.evaluate on dino_xcit_medium_24_p8, each a process of its own;
+     cli.evaluate on dino_xcit_small_12_p8, each a process of its own;
  10. DINO training: a synthetic ImageFolder (2 classes, 448 PNGs at 256
      px from a numpy seed: 7 steps of 64) through python -m
      tpu_ac_torch.cli.dino at main_dino's recipe (ViT-S/16, out_dim
@@ -101,9 +104,9 @@ Phases, each fatal on failure:
      the step ms by CUDA events, images/s, crops/s, the share of the
      dense bf16 peak, peak GiB); the PIL path (--num_workers = the CPU
      count, 1 epoch x 3 steps: step ms and the host's wait on the
-     loader); --steps_per_dispatch 2 and --remat true at 2 epochs x 2
-     steps, their epoch losses equal to the plain run's, remat's peak
-     beside the plain run's; every run's checkpoints and log.txt written,
+     loader); --steps_per_dispatch 2 and --remat true at the timed run's
+     2 epochs x 6 steps, their epoch losses equal to its, remat's peak
+     beside its; every run's checkpoints and log.txt written,
      its losses finite.  In this process: 3 steps under torch.profiler
      (busy share, the ten largest device ops), and one full-width step at
      batch 2 in f32 (TF32 off) on the card against the CPU from one state
@@ -172,12 +175,21 @@ Phases, each fatal on failure:
      (N = 6,361 a frame) into a GIF (frame count and size checked),
      frames/s, frame 0's heat map against the CPU's.  No hand-written
      kernel lies on this path (asserted: no launches);
- 14. timings at the main path's shapes: each kernel beside its bound, its
+ 14. training across processes on the one card (the dist phase, see the
+     comment above phase_dist): two gloo ranks on cuda:0 run two f32 DINO
+     steps at main_dino's ViT-S/16 recipe (32 images a rank) and one step
+     of each SCAN kind at the CIFAR-10 recipe (train_dp 2, in float64 and
+     in f32), their states bit-equal to each other, against one process on
+     the whole batch; the gloo all-reduce of the gradient bucket timed;
+     then one nccl rank (world 1): an init, an all-reduce and a bf16 DINO
+     step bit-equal to the step without a group;
+ 15. timings at the main path's shapes: each kernel beside its bound, its
      plain version and a library yardstick (cdist; scaled_dot_product_
      attention, bf16 and f32), which the port never calls; for min_dists
      also cuBLAS (torch.matmul) on the same bf16 products without the min
-     (gemm_ms); the window kernel at one rank's shape of N = 168 over
-     dp = 2.
+     (gemm_ms); the flash kernel also at head dims 80 and 128 ([8, 16,
+     785, 80], [8, 6, 785, 128]); the window kernel at one rank's shape of
+     N = 168 over dp = 2.
 The build's ptxas report (registers, shared memory, spills) is printed for
 every kernel instance.
 Before the card's line come the run's end-to-end numbers as one summary
@@ -234,16 +246,57 @@ def _fatal(msg: str) -> None:
     sys.exit(1)
 
 
+def _children(pid: str = "self") -> list[str]:
+    kids = []
+    try:
+        for task in os.listdir(f"/proc/{pid}/task"):
+            with open(f"/proc/{pid}/task/{task}/children") as f:
+                kids += f.read().split()
+    except OSError:  # ended since the listing
+        pass
+    return kids
+
+
+_POOLS = []
+
+
+def _aug_pool(*args, **kwargs):
+    """A ParallelAugPool that _stop_children closes if its phase fails."""
+    from tpu_ac_torch.data.prefetch import ParallelAugPool
+
+    _POOLS.append(ParallelAugPool(*args, **kwargs))
+    return _POOLS[-1]
+
+
+def _stop_children() -> None:
+    """Stop every process below this one (a phase that failed may leave
+    a worker pool, a rank or a server behind): the script never ends with
+    a process of its own still running.  This process's pools are closed
+    first (a live pool would start new workers in place of killed ones),
+    then what is left is killed."""
+    import signal
+
+    for pool in _POOLS:
+        pool.close()  # a no-op on a closed pool
+    tree, todo = [], _children()
+    while todo:
+        pid = todo.pop()
+        tree.append(int(pid))
+        todo += _children(pid)
+    for pid in tree:
+        with contextlib.suppress(OSError):
+            os.kill(pid, signal.SIGKILL)
+    for pid in tree:
+        with contextlib.suppress(OSError):
+            os.waitpid(pid, 0)
+
+
 def _check_no_children() -> None:
     """Fail if a process that this script started is still running: every
     phase must stop what it starts (the SCAN stages' worker pools stop
     their forkserver and resource tracker at close)."""
-    kids = []
-    for task in os.listdir("/proc/self/task"):
-        with open(f"/proc/self/task/{task}/children") as f:
-            kids += f.read().split()
     left = []
-    for pid in kids:
+    for pid in _children():
         try:
             with open(f"/proc/{pid}/cmdline", "rb") as f:
                 left.append(f"{pid}: " + f.read().replace(b"\0", b" ")
@@ -653,6 +706,13 @@ def _packed_qkv(torch, gen, b: int, h: int, s: int, dh: int, dtype):
 # the largest gap over its per-element limit (attention.flash_tolerance)
 # seen by each flash check, by dtype
 FLASH_WORST = {}
+# head dims over 64 (zero-padded to a multiple of 64, one launch per
+# 64-column slice of V): checked at FLASH_SHAPE's B, H, S; timed at the
+# widths of ViT-H/14 (1280 / 16 heads) and of a 768-wide ViT of 6 heads
+WIDE_HEAD_DIMS = (80, 128, 200)
+WIDE_TIMING_SHAPES = ((8, 16, 785, 80), (8, 6, 785, 128))
+# {Dh: {dtype: {"max_abs_err", "gap_over_tol"}}} of those checks
+FLASH_WIDE = {}
 
 
 def _flash_check(torch, attn, q, k, v, bias, label: str) -> float:
@@ -705,6 +765,31 @@ def phase_flash_kernel(torch, attn) -> float:
             q, k, v = _packed_qkv(torch, gen, b, h, 130, dh_small, dtype)
             errs.append(_flash_check(torch, attn, q, k, v, None,
                                      f"[{b}, {h}, 130, {dh_small}]"))
+        # head dims over 64: ceil(Dh / 64) launches a call, each summing
+        # QK^T over every 64-column chunk of q and k
+        name = str(dtype).split(".")[-1]
+        for dh_wide in WIDE_HEAD_DIMS:
+            q, k, v = _packed_qkv(torch, gen, b, h, s, dh_wide, dtype)
+            before = attn.LAUNCHES
+            worst = FLASH_WORST.get(name, 0.0)
+            FLASH_WORST[name] = 0.0
+            err = _flash_check(torch, attn, q, k, v, None,
+                               f"[{b}, {h}, {s}, {dh_wide}]")
+            # and with a segment mask over the last 56 keys of 256
+            q, k, v = _packed_qkv(torch, gen, b, h, 256, dh_wide, dtype)
+            bias = torch.zeros(1, 1, 1, 256, device="cuda")
+            bias[..., 200:] = -1e9
+            err = max(err, _flash_check(
+                torch, attn, q, k, v, bias,
+                f"[{b}, {h}, 256, {dh_wide}] segment mask"))
+            n_launch = attn.LAUNCHES - before
+            if n_launch != 2 * -(-dh_wide // 64):
+                _fatal(f"flash Dh {dh_wide}: {n_launch} launches for two "
+                       f"calls, want {2 * -(-dh_wide // 64)}")
+            FLASH_WIDE.setdefault(dh_wide, {})[name] = {
+                "max_abs_err": err, "gap_over_tol": FLASH_WORST[name]}
+            FLASH_WORST[name] = max(worst, FLASH_WORST[name])
+            errs.append(err)
     return max(errs)
 
 
@@ -770,11 +855,58 @@ def phase_flash_timing(torch, attn) -> dict:
           f"{flops / PEAK_F32_FLOPS * 1e3:.4f} ms), plain "
           f"{f32_plain_ms:.4f} ms, scaled_dot_product_attention f32 "
           f"{f32_library_ms:.4f} ms", flush=True)
+    wide = {}
+    for shape in WIDE_TIMING_SHAPES:
+        wide["x".join(map(str, shape))] = _flash_wide_timing(torch, attn,
+                                                             shape)
     return dict(ms=ms, host_ms=host_ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=bound_by, library_ms=library_ms, dense_ms=dense_ms,
                 f32_ms=f32_ms, f32_host_ms=f32_host_ms,
                 f32_bound_ms=f32_bound, f32_plain_ms=f32_plain_ms,
-                f32_library_ms=f32_library_ms, max_abs_err=err)
+                f32_library_ms=f32_library_ms, max_abs_err=err, wide=wide)
+
+
+def _flash_wide_timing(torch, attn, shape) -> dict:
+    """A head dim over 64, bf16 and f32: the kernel (ceil(Dh / 64)
+    launches a call), its plain version and scaled_dot_product_attention
+    beside the bound of the call's own work (Dh, not the padded width)."""
+    import torch.nn.functional as F
+
+    b, h, s, dh = shape
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    flops = 4.0 * b * h * s * s * dh
+    row = {}
+    for dtype, peak, passes in ((torch.bfloat16, PEAK_BF16_FLOPS, 1),
+                                (torch.float32, PEAK_TF32_FLOPS, 3)):
+        q, k, v = _packed_qkv(torch, gen, b, h, s, dh, dtype)
+        scale = dh ** -0.5
+        name = str(dtype).split(".")[-1]
+        err = _flash_check(torch, attn, q, k, v, None,
+                           f"[{b}, {h}, {s}, {dh}] (timed inputs)")
+        ms, host_ms = _time_ms(
+            lambda: attn.flash_attention_impl(q, k, v, scale), reps=20,
+            warmup=3)
+        plain_ms, _ = _time_ms(
+            lambda: attn.flash_attention_plain(q, k, v, scale), reps=20,
+            warmup=3)
+        library_ms, _ = _time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale), reps=20, warmup=3)
+        t_ops = passes * flops / peak * 1e3
+        t_bytes = 4.0 * b * h * s * dh * q.element_size() / PEAK_HBM_BYTES \
+            * 1e3
+        bound, bound_by = ((t_ops, "operations") if t_ops >= t_bytes
+                           else (t_bytes, "bytes"))
+        print(f"timing flash {name} [{b}, {h}, {s}, {dh}]: kernel "
+              f"{ms:.4f} ms ({-(-dh // 64)} launches a call; "
+              f"{flops / ms / 1e9:.1f} TFLOP/s of the call's work; its "
+              f"wrapper {host_ms:.4f} ms a call on the host), bound "
+              f"{bound:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
+              f"scaled_dot_product_attention {library_ms:.4f} ms",
+              flush=True)
+        row[name] = dict(ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound,
+                         bound_by=bound_by, max_abs_err=err)
+    return row
 
 
 def _make_tree(work: str, sizes: dict[str, int]) -> str:
@@ -1829,12 +1961,13 @@ ZOO_GAP_BOUND = 1e-3
 
 def _zoo_cli(work: str, root: str) -> dict:
     """cli.main + cli.evaluate as a user runs them, each in a process of
-    its own, on a family of this slice (dino_xcit_medium_24_p8, the CLI
-    defaults: blocks.10 + blocks.11, 2048 -> 4096, bf16, batch 8)."""
+    its own, on a family of this slice (dino_xcit_small_12_p8, the CLI
+    defaults: blocks.10 + blocks.11, 2048 -> 4096, bf16, batch 8; the
+    12-block model keeps the script inside its time limit)."""
     from tpu_ac_torch.pipeline import PipelineConfig
 
     out = os.path.join(work, "zoo_cli")
-    name = "dino_xcit_medium_24_p8"
+    name = "dino_xcit_small_12_p8"
     common = ["--path", root, "--output_dir", out, "--backbone_names", name,
               "--categories", "bottle"]
     env = dict(os.environ, PYTHONPATH=HERE)
@@ -2014,8 +2147,8 @@ def _dino_step_flops(vit_cfg, cfg, batch: int) -> float:
     return batch * (3 * student + teacher)
 
 
-def _make_imagefolder(work: str) -> str:
-    """2 classes of DINO_IMAGES / 2 PNGs at 256 px: seeded 16 x 16 noise,
+def _make_imagefolder(work: str, n_images: int = DINO_IMAGES) -> str:
+    """2 classes of n_images / 2 PNGs at 256 px: seeded 16 x 16 noise,
     bicubic-upsampled (smooth, image-like), plus fine noise."""
     import numpy as np
     from PIL import Image
@@ -2024,7 +2157,7 @@ def _make_imagefolder(work: str) -> str:
     rng = np.random.default_rng(0)
     for c in ("a", "b"):
         os.makedirs(os.path.join(root, c))
-        for i in range(DINO_IMAGES // 2):
+        for i in range(n_images // 2):
             low = Image.fromarray(rng.integers(0, 256, (16, 16, 3),
                                                dtype=np.uint8))
             arr = np.asarray(low.resize((256, 256), Image.BICUBIC),
@@ -2232,9 +2365,8 @@ def phase_dino(torch, work: str) -> dict:
         ImageFolder(root), 256, cache)[:DINO_BATCH]))
     dev_aug = ["--device_aug", "--data_cache", cache]
 
-    timed = _dino_cli(work, root, "timed",
-                      dev_aug + ["--epochs", "2", "--max_steps_per_epoch",
-                                 "6"])
+    timed_args = dev_aug + ["--epochs", "2", "--max_steps_per_epoch", "6"]
+    timed = _dino_cli(work, root, "timed", timed_args)
     e1 = timed["epochs"][1]
     step_s = e1["step_ms"] / 1e3
     crops = DINO_BATCH * cfg.ncrops
@@ -2254,24 +2386,24 @@ def phase_dino(torch, work: str) -> dict:
           f"{p0['step_ms']:.2f} ms a step, the step waits "
           f"{p0['data_wait_ms']:.2f} ms a step on the loader", flush=True)
 
-    flag_args = dev_aug + ["--epochs", "2", "--max_steps_per_epoch", "2"]
-    plain = _dino_cli(work, root, "plain", flag_args)
+    # the flag runs against the timed run (not a plain run of their own:
+    # the script's time limit)
     flags = {}
     for tag, extra in (("k2", ["--steps_per_dispatch", "2"]),
                        ("remat", ["--remat", "true"])):
-        run = _dino_cli(work, root, tag, flag_args + extra)
-        if run["losses"] != plain["losses"]:
+        run = _dino_cli(work, root, tag, timed_args + extra)
+        if run["losses"] != timed["losses"]:
             _fatal(f"cli.dino {' '.join(extra)}: epoch losses "
-                   f"{run['losses']}, the plain run's {plain['losses']}: "
+                   f"{run['losses']}, the timed run's {timed['losses']}: "
                    "the same kernels on the same crops must give the same "
                    "bits")
         flags[tag] = run
     print(f"dino flags: --steps_per_dispatch 2 and --remat true epoch "
-          f"losses bit-equal to the plain run's {plain['losses']}; peak "
+          f"losses bit-equal to the timed run's {timed['losses']}; peak "
           f"{flags['remat']['epochs'][1]['peak_gib']:.2f} GiB with --remat "
-          f"against {plain['epochs'][1]['peak_gib']:.2f} GiB without; step "
+          f"against {e1['peak_gib']:.2f} GiB without; step "
           f"{flags['remat']['epochs'][1]['step_ms']:.2f} against "
-          f"{plain['epochs'][1]['step_ms']:.2f} ms", flush=True)
+          f"{e1['step_ms']:.2f} ms", flush=True)
 
     prof = _dino_profile(torch, base)
     gaps = _dino_card_vs_cpu(torch, base)
@@ -2284,9 +2416,9 @@ def phase_dino(torch, work: str) -> dict:
                 pil_step_ms=p0["step_ms"], pil_wait_ms=p0["data_wait_ms"],
                 cpus=n_cpu,
                 remat_peak_gib=flags["remat"]["epochs"][1]["peak_gib"],
-                plain_peak_gib=plain["epochs"][1]["peak_gib"],
+                plain_peak_gib=e1["peak_gib"],
                 remat_step_ms=flags["remat"]["epochs"][1]["step_ms"],
-                plain_step_ms=plain["epochs"][1]["step_ms"],
+                plain_step_ms=e1["step_ms"],
                 phase_s=phase_s, **prof, **gaps)
 
 
@@ -2343,6 +2475,7 @@ SCAN_GRAD_GAP_BOUND = 1e-2
 SCAN_GLOBAL_GRAD_BOUND = 1e-3
 SCAN_BN_GAP_BOUND = 1e-5
 SCAN_VS_CPU_BATCH = {"simclr": 32, "scan": 32, "selflabel": 64}
+SELFLABEL_FALLBACK_THRESHOLDS = (0.95, 0.9, 0.8, 0.5)
 # processes of the CLI: (stage, exp) in the order a user runs them
 SCAN_DEVICE = "cuda"
 
@@ -2557,7 +2690,6 @@ def _scan_card_vs_cpu(torch, ds, cfg) -> dict:
         StrongAugmentation,
         WeakAugmentation,
     )
-    from tpu_ac_torch.data.prefetch import ParallelAugPool
     from tpu_ac_torch.device import precision_scope
     from tpu_ac_torch.train import optim
     from tpu_ac_torch.train import scan as ts
@@ -2565,7 +2697,7 @@ def _scan_card_vs_cpu(torch, ds, cfg) -> dict:
 
     mcfg = cli._model_config(cfg)
     one = cli._single_head(cfg)
-    pool = ParallelAugPool(8)
+    pool = _aug_pool(8)
     sim = SimCLRAugmentation(32, seed=0)
 
     def views(aug, n, stream, first=0):
@@ -2599,18 +2731,35 @@ def _scan_card_vs_cpu(torch, ds, cfg) -> dict:
     # first of the split's batches whose rows all lie 1e-4 or more from it
     # (on the CPU), with at least one row over it.  After one epoch of
     # each stage few rows pass 0.99 (train-mode BN, so the batch is
-    # searched whole): the first 8 batches of 64 held none in one run
-    n_sl, thr = bsz["selflabel"], cfg.confidence_threshold
-    for first in range(0, len(ds) - n_sl + 1, n_sl):
-        weak = views(WeakAugmentation(32, seed=0), n_sl, "w", first)
-        with torch.no_grad():
-            conf = torch.softmax(ts.clustering_forward(
-                sl, sc["bn"], weak, one, train=True)[0][0], 1).amax(1)
-        if (conf - thr).abs().min() >= 1e-4 and (conf > thr).any():
-            break
-    else:
+    # searched whole): the first 8 batches of 64 held none in one run, and
+    # the whole split none in another.  So the threshold is the first of
+    # the recipe's and SELFLABEL_FALLBACK_THRESHOLDS for which a batch
+    # qualifies: the same step and mask, the loaded head unchanged (the
+    # dist phase's head, scaled by 8 so that rows pass, puts the card's
+    # f32 gradient 3-4e-3 from float64, over SCAN_GLOBAL_GRAD_BOUND).
+    # Each batch is passed through the model once.
+    n_sl = bsz["selflabel"]
+    confs = {}
+
+    def qualifies(first, thr):
+        if first not in confs:
+            weak = views(WeakAugmentation(32, seed=0), n_sl, "w", first)
+            with torch.no_grad():
+                confs[first] = (weak, torch.softmax(ts.clustering_forward(
+                    sl, sc["bn"], weak, one, train=True)[0][0], 1).amax(1))
+        conf = confs[first][1]
+        return (conf - thr).abs().min() >= 1e-4 and (conf > thr).any()
+
+    thresholds = (cfg.confidence_threshold, *SELFLABEL_FALLBACK_THRESHOLDS)
+    found = next(((thr, first) for thr in thresholds
+                  for first in range(0, len(ds) - n_sl + 1, n_sl)
+                  if qualifies(first, thr)), None)
+    if found is None:
         _fatal("scan card vs CPU, selflabel: no candidate batch has its "
-               f"confidences 1e-4 or more from the threshold {thr}")
+               f"confidences 1e-4 or more from a threshold of {thresholds} "
+               "with a row over it")
+    thr, first = found
+    weak = confs[first][0]
     strong = views(StrongAugmentation(32, seed=0), n_sl, "s", first)
     lr_scan = cfg.scan_lr
 
@@ -2638,8 +2787,7 @@ def _scan_card_vs_cpu(torch, ds, cfg) -> dict:
         "selflabel": (optim.sgd(cfg.selflabel_lr, momentum=0.9),
                       cfg.selflabel_lr, False,
                       lambda s, a, b: ts.selflabel_loss_and_grads(
-                          s, a, b, one, cfg.confidence_threshold,
-                          cfg.apply_class_balancing),
+                          s, a, b, one, thr, cfg.apply_class_balancing),
                       (weak, strong), sl, sc["bn"]),
     }
     pool.close()
@@ -2745,6 +2893,7 @@ def _scan_card_vs_cpu(torch, ds, cfg) -> dict:
                            "must be equal and not empty)")
                 row["confident"] = int(masks[0].sum())
                 row["threshold_margin"] = float((probs[0] - thr).abs().min())
+                row["threshold"] = thr
                 extra = (f"; images {first}-{first + n_sl - 1}: "
                          f"{row['confident']} of {n_sl} rows over {thr} on "
                          f"both, the nearest {row['threshold_margin']:.3e} "
@@ -2778,7 +2927,6 @@ def _scan_aug_rates(ds) -> dict:
     import numpy as np
 
     from tpu_ac_torch.data.augment import SimCLRAugmentation
-    from tpu_ac_torch.data.prefetch import ParallelAugPool
 
     aug, n = SimCLRAugmentation(32, seed=0), SCAN_AUG_IMAGES
 
@@ -2794,7 +2942,7 @@ def _scan_aug_rates(ds) -> dict:
         t0 = time.perf_counter()
         arrays.append(np.stack(list(threads.map(one, range(n)))))
         out["8 threads"] = time.perf_counter() - t0
-    pool = ParallelAugPool(8, seed=0)
+    pool = _aug_pool(8, seed=0)
     try:
         pool.stack(aug, ds.get_pil, range(64), stream="r")
         t0 = time.perf_counter()
@@ -2869,14 +3017,14 @@ def _scan_profile(torch, ds, cfg) -> dict:
         StrongAugmentation,
         WeakAugmentation,
     )
-    from tpu_ac_torch.data.prefetch import ParallelAugPool, to_device
+    from tpu_ac_torch.data.prefetch import to_device
     from tpu_ac_torch.device import precision_scope
     from tpu_ac_torch.train import optim
     from tpu_ac_torch.train import scan as ts
 
     mcfg, one = cli._model_config(cfg), cli._single_head(cfg)
     put = to_device(SCAN_DEVICE)
-    pool = ParallelAugPool(8)
+    pool = _aug_pool(8)
     p, bn = ts.init_contrastive_model(0, mcfg, SCAN_DEVICE)
     sim_opt = optim.chain(optim.add_decayed_weights(cfg.weight_decay),
                           optim.sgd(cfg.lr, momentum=0.9))
@@ -3675,6 +3823,637 @@ def phase_viz(torch, root: str, work: str) -> dict:
     return runs
 
 
+# The dist phase: training across processes on the one card.  Two ranks
+# share cuda:0 over gloo (NCCL refuses two ranks on one GPU; gloo reduces
+# CUDA tensors by all_reduce and broadcast, all that collectives.py uses).
+# DINO: two steps at main_dino's ViT-S/16 recipe (out_dim 65536), 32
+# images a rank, f32 with TF32 off, against one process on the 64 images
+# (rank 0 computes it after the group is gone) within
+# tests/test_torch_dino_train.py's rules: 2e-6 on the parameters and the
+# teacher except Adam's sign swing, 2 lr a step, where the whole batch's
+# first gradient is below 1e-6; Adam's moments and the center 1e-4
+# relative (+ 1e-5 of the largest).  SCAN: one step of each kind at the
+# CIFAR-10 recipe's batches (512, 128 with 10 heads, 1,000), train_dp 2,
+# against the whole-batch step: in float64 (TF32 off) the two agree to
+# DIST_F64_RTOL in the loss, every gradient, the BN statistics and the
+# state after the step (Adam: 2 lr where the gradient is float64 noise
+# about zero); in f32, where ResNet-18's gradients sit up to ~5e-3 from
+# float64 in one process too, each is held to the float64 step by the SCAN
+# phase's card-vs-CPU rules: no further than twice the one-process f32
+# step, or SCAN_LOSS_GAP_BOUND, SCAN_GRAD_GAP_BOUND (each gradient and the
+# whole gradient) and SCAN_BN_GAP_BOUND; the states after the step lr x
+# the gradients' gap apart for SGD, 2 lr for Adam.
+# The ranks' states must be bit-equal (SHA-256 of every leaf).  Then rank
+# 1, its group gone, is one nccl rank (world 1): an init, an all-reduce
+# and one DINO step (bf16, batch 64) bit-equal to the same step without a
+# group.  The inputs are
+# seeded normal crops made on the card; the self-label head is scaled by
+# DIST_SELFLABEL_HEAD_GAIN so that some rows pass the 0.99 threshold, and
+# the batch seed is the first whose rows all lie 1e-4 or more from it.
+DIST_DEVICE = "cuda"
+DIST_DINO_BATCH = 64
+DIST_DINO_STEPS = 2
+DIST_SCAN_BATCH = {"simclr": 512, "scan": 128, "selflabel": 1000}
+DIST_SELFLABEL_HEAD_GAIN = 8.0
+DIST_ALLREDUCE_REPS = 3
+# float64 sums in other orders over the two ranks' shares
+DIST_F64_RTOL = 1e-9
+
+
+def _digest(tensors: dict) -> str:
+    """SHA-256 over every tensor's bytes, in the order of the names."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(k.encode())
+        h.update(tensors[k].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dist_dino_inputs(torch, cfg, dev):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b = DIST_DINO_BATCH
+    return [(torch.randn(2 * b, 3, cfg.global_size, cfg.global_size,
+                         device=dev, generator=gen),
+             torch.randn(cfg.local_crops_number * b, 3, cfg.local_size,
+                         cfg.local_size, device=dev, generator=gen))
+            for _ in range(DIST_DINO_STEPS)]
+
+
+def _share(x, views: int, rank: int, world: int):
+    """Rank ``rank``'s share of a crop-major batch [views * B, ...]."""
+    v = x.reshape(views, -1, *x.shape[1:])
+    m = v.shape[1] // world
+    return v[:, rank * m:(rank + 1) * m].reshape(-1, *x.shape[1:])
+
+
+def _dist_dino(torch, vit_cfg, cfg, state, batches, rank, world):
+    """DIST_DINO_STEPS f32 steps on this rank's share: (state, losses)."""
+    from tpu_ac_torch.train.dino import make_dino_train_step
+
+    step = make_dino_train_step(vit_cfg, cfg)
+    losses = []
+    for g, l in batches:
+        state, m = step(state, _share(g, 2, rank, world),
+                        _share(l, cfg.local_crops_number, rank, world),
+                        lr=DINO_LR, wd=0.04, teacher_momentum=0.996,
+                        teacher_temp=cfg.teacher_temp, freeze_last=False)
+        losses.append(float(m["loss"]))
+    return state, losses
+
+
+def _dist_scan_cases(torch, dev):
+    """name: (model config, optimizer, lr, Adam?, loss_and_grads, frozen,
+    params, bn, batch size): the CIFAR-10 recipe's steps."""
+    from tpu_ac_torch.models.resnet_cifar import RESNET18_CIFAR
+    from tpu_ac_torch.train import optim
+    from tpu_ac_torch.train import scan as ts
+
+    mcfg = ts.SCANModelConfig(backbone=RESNET18_CIFAR, feature_dim=128,
+                              n_clusters=10, n_heads=10)
+    one = ts.SCANModelConfig(backbone=RESNET18_CIFAR, feature_dim=128,
+                             n_clusters=10, n_heads=1)
+    p, bn = ts.init_contrastive_model(0, mcfg, dev)
+    cp, cbn = ts.init_clustering_model(0, mcfg, dev)
+    sp, sbn = ts.init_clustering_model(0, one, dev)
+    sp = {**sp, "cluster_head.0.weight":
+          sp["cluster_head.0.weight"] * DIST_SELFLABEL_HEAD_GAIN}
+
+    def head(k):
+        return not k.startswith("cluster_head")
+
+    return {
+        "simclr": (optim.chain(optim.add_decayed_weights(1e-4),
+                               optim.sgd(0.4, momentum=0.9)), 0.4, False,
+                   lambda s, a, b: ts.simclr_loss_and_grads(
+                       s, a, b, mcfg, 0.1), None, p, bn),
+        "scan": (optim.adam(1e-4), 1e-4, True,
+                 lambda s, a, b: ts.scan_loss_and_grads(s, a, b, mcfg, 2.0),
+                 None, cp, cbn),
+        "scan_head_only": (optim.adam(1e-4), 1e-4, True,
+                           lambda s, a, b: ts.scan_loss_and_grads(
+                               s, a, b, mcfg, 2.0, True), head, cp, cbn),
+        "selflabel": (optim.sgd(0.03, momentum=0.9), 0.03, False,
+                      lambda s, a, b: ts.selflabel_loss_and_grads(
+                          s, a, b, one, 0.99, True), None, sp, sbn),
+    }, one
+
+
+def _dist_scan_batch(torch, name: str, dev, seed: int):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = DIST_SCAN_BATCH[name.replace("_head_only", "")]
+    a = torch.randn(n, 3, 32, 32, device=dev, generator=gen)
+    return a, a + 0.5 * torch.randn(n, 3, 32, 32, device=dev, generator=gen)
+
+
+def _selflabel_seed(torch, one, params, bn, dev, rank, world) -> tuple:
+    """The first batch seed whose weak pass (train-mode BN over the global
+    batch) puts every row 1e-4 or more from the 0.99 threshold and at
+    least one over it: (seed, confident rows)."""
+    from tpu_ac_torch.distributed import collectives
+    from tpu_ac_torch.train import scan as ts
+
+    for seed in range(1, 9):
+        a, _ = _dist_scan_batch(torch, "selflabel", dev, seed)
+        m = len(a) // world
+        with torch.no_grad():
+            conf = torch.softmax(ts.clustering_forward(
+                params, bn, a[rank * m:(rank + 1) * m], one,
+                train=True)[0][0], 1).amax(1)
+        counts = collectives.all_reduce_sum(torch.stack([
+            (conf > 0.99).sum(), ((conf - 0.99).abs() < 1e-4).sum()]))
+        if int(counts[1]) == 0 and int(counts[0]) > 0:
+            return seed, int(counts[0])
+    return None, 0
+
+
+def _dist_scan(torch, cases, dev, rank, world, seed_sl,
+               dtype=None):
+    """One step of each kind on this rank's share (in ``dtype``, f32 by
+    default): {name: (loss, grads, state after)}, every tensor on the
+    host."""
+    from tpu_ac_torch.device import precision_scope
+    from tpu_ac_torch.train import scan as ts
+
+    dtype = dtype or torch.float32
+    out = {}
+    with precision_scope("highest"):
+        for name, (opt, _lr, _adam, lg, frozen, params, bns) in \
+                cases.items():
+            a, b = _dist_scan_batch(torch, name, dev,
+                                    seed_sl if name == "selflabel" else 3)
+            m = len(a) // world
+            state = ts.init_train_state(
+                {k: v.to(dtype) for k, v in params.items()},
+                {k: v.to(dtype) for k, v in bns.items()}, opt)
+            loss, aux, grads = lg(state,
+                                  a[rank * m:(rank + 1) * m].to(dtype),
+                                  b[rank * m:(rank + 1) * m].to(dtype))
+            new_bn = aux[0] if isinstance(aux, tuple) else aux
+            new = ts.apply_gradients(state, grads, new_bn, opt, frozen)
+            out[name] = (float(loss), {k: v.cpu() for k, v in grads.items()},
+                         {**{f"p/{k}": v.cpu() for k, v in new.params.items()},
+                          **{f"bn/{k}": v.cpu()
+                             for k, v in new.bn_state.items()}})
+    return out
+
+
+def _dist_rank(rank: int, world: int, coord: str, nccl_coord: str,
+               work: str) -> None:
+    """One of the two gloo ranks on DIST_DEVICE (spawned); writes
+    dist_rank{rank}.json.  After the group is gone rank 0 writes the
+    comparison with one process on the whole batch and, meanwhile, rank 1
+    runs the nccl rank of world 1 (``_dist_nccl_one``)."""
+    import torch
+
+    from tpu_ac_torch.cli.dino import _leaves
+    from tpu_ac_torch.device import precision_scope
+    from tpu_ac_torch.distributed import collectives, multihost_init
+    from tpu_ac_torch.train.dino import init_dino_state
+
+    t0 = time.perf_counter()
+    dev = torch.device(DIST_DEVICE)
+    multihost_init(coord, world, rank, backend="gloo")
+    vit_cfg, cfg, _ = _dino_recipe()
+    state0 = init_dino_state(0, vit_cfg, cfg, device=dev)
+    batches = _dist_dino_inputs(torch, cfg, dev)
+    with precision_scope("highest"):
+        state, losses = _dist_dino(torch, vit_cfg, cfg, state0, batches,
+                                   rank, world)
+    dino_leaves = {**_leaves(state), "step": state.step}
+    # the gradient bucket's all-reduce alone, at its size
+    bucket = {k: torch.zeros_like(v) for k, v in state.student.items()}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(DIST_ALLREDUCE_REPS):
+        collectives.all_reduce_dict(bucket)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    allreduce_ms = (time.perf_counter() - t1) * 1e3 / DIST_ALLREDUCE_REPS
+    del bucket
+    cases, one = _dist_scan_cases(torch, dev)
+    sl = cases["selflabel"]
+    with precision_scope("highest"):
+        seed_sl, confident = _selflabel_seed(torch, one, sl[5], sl[6], dev,
+                                             rank, world)
+    if seed_sl is None:
+        raise RuntimeError("dist selflabel: no batch seed in 1..8 has its "
+                           "confidences 1e-4 or more from 0.99 with a row "
+                           "over it")
+    scan = {dt: _dist_scan(torch, cases, dev, rank, world, seed_sl,
+                           getattr(torch, dt))
+            for dt in ("float32", "float64")}
+    with open(os.path.join(work, f"dist_rank{rank}.json"), "w") as f:
+        json.dump({"dino": _digest(dino_leaves), "dino_losses": losses,
+                   "scan": {f"{dt}/{k}": _digest(v[2])
+                            for dt, runs in scan.items()
+                            for k, v in runs.items()},
+                   "allreduce_ms": allreduce_ms,
+                   "bucket_mb": sum(v.numel() for v in state.student.values())
+                   * 4 / 1e6, "seconds": time.perf_counter() - t0}, f)
+    torch.distributed.destroy_process_group()
+    if rank:
+        del state, state0, batches, dino_leaves
+        _dist_nccl_one(nccl_coord, work)
+        return
+    # one process on the whole batch (no group now: the step's collectives
+    # return their inputs)
+    rows = {"dino": _dist_dino_check(torch, vit_cfg, cfg, state0, batches,
+                                     state, losses),
+            "scan": _dist_scan_check(torch, cases, dev, scan, seed_sl),
+            "selflabel_confident": confident}
+    with open(os.path.join(work, "dist_check.json"), "w") as f:
+        json.dump(rows, f)
+
+
+def _dist_dino_check(torch, vit_cfg, cfg, state0, batches, got, losses):
+    """The two ranks' state (rank 0's) against one process's on the whole
+    batch (see the block comment above the dist phase)."""
+    from tpu_ac_torch.cli.dino import _leaves
+    from tpu_ac_torch.device import precision_scope
+    from tpu_ac_torch.train.dino import build_dino_model, dino_loss_and_grads
+
+    with precision_scope("highest"):
+        g0 = dino_loss_and_grads(build_dino_model(vit_cfg, cfg), state0,
+                                 *batches[0], cfg.teacher_temp, cfg)[2]
+        want, want_losses = _dist_dino(torch, vit_cfg, cfg, state0, batches,
+                                       0, 1)
+    a_all, b_all = _leaves(got), _leaves(want)
+    worst = {"param": 0.0, "swing_lr": 0.0, "moment": 0.0}
+    for k, b in b_all.items():
+        a, b = a_all[k].double(), b.double()
+        part, _, name = k.partition("/")
+        if part in ("student", "teacher"):
+            eps = g0[name].abs() < 1e-6
+            swing = float((a - b).abs()[eps].max()) if bool(eps.any()) \
+                else 0.0
+            gap = float((a - b).abs()[~eps].max()) if bool((~eps).any()) \
+                else 0.0
+            worst["swing_lr"] = max(worst["swing_lr"], swing / DINO_LR)
+            worst["param"] = max(worst["param"], gap)
+            if swing > 2 * DINO_LR * DIST_DINO_STEPS or gap > 2e-6:
+                raise RuntimeError(f"dist dino {k}: {gap:.3e} apart (bound "
+                                   f"2e-6), {swing:.3e} where the gradient "
+                                   f"is near eps (bound 2 lr a step)")
+        elif k != "count":
+            over = float(((a - b).abs() / (1e-4 * b.abs()
+                                          + 1e-5 * float(b.abs().max())
+                                          + 1e-30)).max())
+            worst["moment"] = max(worst["moment"], over)
+            if over > 1:
+                raise RuntimeError(f"dist dino {k}: {over:.3f} of its bound")
+        elif not torch.equal(a_all[k], want.opt_state.count):
+            raise RuntimeError("dist dino: Adam's count differs")
+    return dict(worst, whole_losses=want_losses)
+
+
+def _dist_scan_check(torch, cases, dev, got, seed_sl) -> dict:
+    """Each kind's two-rank step (rank 0's; its gradients are the ranks'
+    mean), in float64 and in f32, against the whole-batch step (see the
+    block comment above the dist phase)."""
+    want = {dt: _dist_scan(torch, cases, dev, 0, 1, seed_sl,
+                           getattr(torch, dt))
+            for dt in ("float32", "float64")}
+
+    def norm(x) -> float:
+        return float(torch.linalg.vector_norm(x.double()))
+
+    def rel(a, b) -> float:
+        return norm(a - b) / max(norm(b), 1e-300)
+
+    def over(a, w, r, floor) -> float:
+        """a's gap to r over max(2 x w's gap, floor x |r|)."""
+        return norm(a - r) / max(2 * norm(w - r), floor * norm(r), 1e-30)
+
+    rows = {}
+    for name in cases:
+        lr, is_adam = cases[name][1], cases[name][2]
+        # float64: the same step to DIST_F64_RTOL
+        loss, grads, after = got["float64"][name]
+        w_loss, w_grads, w_after = want["float64"][name]
+        g_max = max(float(v.abs().max()) for v in w_grads.values())
+        f64_gap = abs(loss - w_loss) / abs(w_loss)
+        for k, v in w_grads.items():
+            f64_gap = max(f64_gap, rel(grads[k], v))
+        for k, v in w_after.items():
+            if is_adam and k.startswith("p/"):
+                noise = w_grads[k[2:]].abs() <= DIST_F64_RTOL * g_max
+                allowed = torch.where(noise, 2 * lr, DIST_F64_RTOL
+                                      * (v.abs() + lr))
+                if bool(((after[k] - v).abs() > allowed).any()):
+                    f64_gap = math.inf
+            else:
+                f64_gap = max(f64_gap, rel(after[k], v))
+        if f64_gap > DIST_F64_RTOL:
+            raise RuntimeError(f"dist scan {name} float64: the two ranks "
+                               f"{f64_gap:.3e} from the whole batch (bound "
+                               f"{DIST_F64_RTOL})")
+        ref_loss, ref_grads, ref_after = loss, grads, after
+        # f32: held to float64 by the SCAN phase's rules
+        loss, grads, after = got["float32"][name]
+        w_loss, w_grads, w_after = want["float32"][name]
+        loss_over = over(torch.tensor(loss), torch.tensor(w_loss),
+                         torch.tensor(ref_loss), SCAN_LOSS_GAP_BOUND)
+        gaps = {k: over(grads[k], w_grads[k], v, SCAN_GRAD_GAP_BOUND)
+                for k, v in ref_grads.items() if norm(v) > 0}
+        ref_sq = sum(norm(v) ** 2 for v in ref_grads.values())
+        whole, whole_w = (math.sqrt(sum(norm(g[k] - v) ** 2
+                                        for k, v in ref_grads.items())
+                                    / ref_sq) for g in (grads, w_grads))
+        bn_over = max(over(after[k], w_after[k], v, SCAN_BN_GAP_BOUND)
+                      for k, v in ref_after.items() if k.startswith("bn/"))
+        state_over = 0.0
+        for k, v in w_after.items():
+            if not k.startswith("p/"):
+                continue
+            a, c = after[k].double(), v.double()
+            if is_adam:
+                gap, bound = float((a - c).abs().max()), 2 * lr
+            else:
+                g = k[2:]
+                gap = norm(a - c)
+                bound = (lr * (1 + 1e-3) * norm(grads[g] - w_grads[g])
+                         + 1e-6 * norm(c))
+            state_over = max(state_over, gap / max(bound, 1e-30))
+        worst = max(gaps, key=gaps.get)
+        if (max(loss_over, gaps[worst], bn_over) > 1
+                or whole > max(2 * whole_w, SCAN_GRAD_GAP_BOUND)
+                or state_over > 1 + 1e-9):
+            raise RuntimeError(
+                f"dist scan {name} f32: loss {loss_over:.3f} of its bound, "
+                f"gradient {worst} {gaps[worst]:.3f} of its bound, whole "
+                f"gradient {whole:.3e} from float64 (one process "
+                f"{whole_w:.3e}), BN statistics {bn_over:.3f} of their "
+                f"bound, states {state_over:.3f} of their bound")
+        rows[name] = dict(f64_gap=f64_gap, loss=loss, whole_loss=w_loss,
+                          loss_over_bound=loss_over,
+                          grad_over_bound=gaps[worst],
+                          whole_grad_gap=whole, whole_grad_gap_one=whole_w,
+                          bn_over_bound=bn_over,
+                          state_over_bound=state_over)
+    return rows
+
+
+def _dist_nccl_one(coord: str, work: str) -> None:
+    """One nccl rank (world 1): an init, an all-reduce and one DINO step
+    (bf16, the recipe's batch), then the same step with no group; writes
+    both digests."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu_ac_torch.cli.dino import _leaves
+    from tpu_ac_torch.train.dino import init_dino_state, make_dino_train_step
+
+    dev = torch.device("cuda")
+    dist.init_process_group("nccl", init_method=f"tcp://{coord}",
+                            world_size=1, rank=0)
+    t = torch.ones(4, device=dev)
+    dist.all_reduce(t)
+    vit_cfg, cfg, _ = _dino_recipe()
+    state = init_dino_state(0, vit_cfg, cfg, device=dev)
+    g, l = _dist_dino_inputs(torch, cfg, dev)[0]
+    step = make_dino_train_step(vit_cfg, cfg, compute_dtype=torch.bfloat16)
+    kw = dict(lr=DINO_LR, wd=0.04, teacher_momentum=0.996,
+              teacher_temp=cfg.teacher_temp, freeze_last=False)
+    in_group = _leaves(step(state, g, l, **kw)[0])
+    digest_group = _digest(in_group)
+    del in_group
+    dist.destroy_process_group()
+    alone = _digest(_leaves(step(state, g, l, **kw)[0]))
+    with open(os.path.join(work, "dist_nccl.json"), "w") as f:
+        json.dump({"all_reduce": t.tolist(), "group": digest_group,
+                   "alone": alone, "backend": "nccl"}, f)
+
+
+def _spawn(fn, nprocs: int, args: tuple, timeout_s: float) -> None:
+    """``fn(rank, *args)`` in ``nprocs`` spawned processes, joined; fatal
+    if one fails or the set outlives ``timeout_s``; the spawn context's
+    semaphore tracker is stopped after, so no process outlives it."""
+    import torch.multiprocessing as mp
+    from multiprocessing import resource_tracker
+    from torch.multiprocessing.spawn import ProcessException
+
+    ctx = mp.start_processes(fn, args=args, nprocs=nprocs, join=False,
+                             start_method="spawn")
+    t0 = time.perf_counter()
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > timeout_s:
+                for p in ctx.processes:
+                    p.kill()
+                _fatal(f"dist: {fn.__name__} outlived {timeout_s} s")
+    except ProcessException as e:
+        _fatal(f"dist: {fn.__name__} failed:\n{e}")
+    finally:
+        for p in ctx.processes:
+            p.join(timeout=30)
+        resource_tracker._resource_tracker._stop()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_dist(torch, work: str) -> dict:
+    """Training across processes on the one card (see the block comment
+    above): two gloo ranks, then one nccl rank."""
+    t_start = time.perf_counter()
+    os.makedirs(work, exist_ok=True)
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()  # the ranks share the card with this process
+    _spawn(_dist_rank, 2, (2, f"127.0.0.1:{_free_port()}",
+                           f"127.0.0.1:{_free_port()}", work), 300)
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(work, f"dist_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    with open(os.path.join(work, "dist_check.json")) as f:
+        check = json.load(f)
+    r0, r1 = ranks
+    if r0["dino"] != r1["dino"] or r0["scan"] != r1["scan"]:
+        _fatal(f"dist: the ranks' states differ: DINO {r0['dino'][:12]} / "
+               f"{r1['dino'][:12]}, SCAN {r0['scan']} / {r1['scan']}")
+    d, s = check["dino"], check["scan"]
+    # each rank's loss is its share's mean: their mean is the batch's
+    losses = [(a + b) / 2 for a, b in zip(r0["dino_losses"],
+                                          r1["dino_losses"])]
+    d["loss_gap"] = max(abs(x - y) / abs(y)
+                        for x, y in zip(losses, d["whole_losses"]))
+    if d["loss_gap"] > DINO_LOSS_GAP_BOUND:
+        _fatal(f"dist dino: the ranks' mean losses {losses}, one "
+               f"process's {d['whole_losses']} (bound "
+               f"{DINO_LOSS_GAP_BOUND} relative)")
+    print(f"dist (2 gloo ranks on one card, {r0['seconds']:.1f} s to their "
+          f"states): DINO ViT-S/16 "
+          f"out_dim 65536, {DIST_DINO_BATCH // 2} images a rank, "
+          f"{DIST_DINO_STEPS} f32 steps (TF32 off): the ranks' states "
+          f"bit-equal; against one process on {DIST_DINO_BATCH}: parameters "
+          f"{d['param']:.3e} apart at most (bound 2e-6), {d['swing_lr']:.3f} "
+          f"lr where the first gradient is near eps (bound "
+          f"{2 * DIST_DINO_STEPS} lr), moments and center at "
+          f"{d['moment']:.3f} of their bound, the ranks' mean losses "
+          f"{losses} against {d['whole_losses']} (gap {d['loss_gap']:.2e}); "
+          f"gloo all-reduce of the "
+          f"{r0['bucket_mb']:.1f} MB gradient bucket "
+          f"{r0['allreduce_ms']:.1f} ms a step (rank 0), "
+          f"{r1['allreduce_ms']:.1f} ms (rank 1); SCAN train_dp 2: " + "; "
+          .join(f"{k} float64 {v['f64_gap']:.2e} from the whole batch; f32 "
+                f"(float64 the reference) loss at "
+                f"{v['loss_over_bound']:.3f} of its bound, gradient "
+                f"{v['grad_over_bound']:.3f}, whole gradient "
+                f"{v['whole_grad_gap']:.2e} from float64 (one process "
+                f"{v['whole_grad_gap_one']:.2e}), BN "
+                f"{v['bn_over_bound']:.3f}, states "
+                f"{v['state_over_bound']:.3f} of their bound"
+                for k, v in s.items())
+          + f"; self-label rows over 0.99: {check['selflabel_confident']}",
+          flush=True)
+    with open(os.path.join(work, "dist_nccl.json")) as f:
+        nccl = json.load(f)
+    if nccl["all_reduce"] != [1.0] * 4 or nccl["group"] != nccl["alone"]:
+        _fatal(f"dist nccl world 1: {nccl}")
+    phase_s = time.perf_counter() - t_start
+    print(f"dist nccl (world 1, rank 1's process after its gloo group): "
+          f"init, all-reduce and one bf16 DINO step bit-equal to the step "
+          f"with no group; dist phase {phase_s:.1f} s", flush=True)
+    return dict(phase_s=phase_s, gloo_s=r0["seconds"],
+                allreduce_ms=r0["allreduce_ms"], bucket_mb=r0["bucket_mb"],
+                dino=d, scan=s)
+
+
+# The scaling mode (``python3 chip_smoke.py --scaling N``, on a host of N
+# cards): DINO at main_dino's recipe (batch 64 a card, bf16, --device_aug)
+# and SCAN's SimCLR stage at the CIFAR-10 recipe (batch 512 in all), on
+# one card and on N, each run a process (or N) of its own, as a user runs
+# them: DINO on N cards under ``python -m torch.distributed.run
+# --nproc_per_node N`` (nccl), SCAN's ``train_dp: N`` with ``cli.scan``
+# starting its N ranks itself.  An ImageFolder of SCALING_DINO_STEPS x 64
+# x N images, so that each rank takes SCALING_DINO_STEPS steps an epoch on
+# N cards (the one-card run is capped at the same count), and a CIFAR-10
+# of SCAN_TRAIN images.  Epoch 1 of each run (epoch 0 warms up) is read
+# from its dino_epoch / scan_epoch lines: the step's ms by CUDA events
+# (the slowest rank's) and the images a second over every rank; the
+# scaling is images/s on N cards over images/s on one.
+SCALING_DINO_STEPS = 6
+
+
+def _run_logged(cmd: list[str], timeout: int) -> str:
+    """``cmd`` as a process: its stdout; fatal if it fails."""
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=timeout,
+                         env=dict(os.environ, PYTHONPATH=HERE))
+    if run.returncode:
+        print(run.stdout[-4000:], run.stderr[-4000:], sep="\n",
+              file=sys.stderr)
+        _fatal(f"{' '.join(cmd[:6])} ... exited {run.returncode}")
+    print(f"{' '.join(cmd[:8])} ...: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return run.stdout
+
+
+def _json_lines(out: str, tag: str) -> list[dict]:
+    """Every ``tag {json}`` record in ``out``, wherever it starts: the
+    ranks of one run share the pipe, so another rank's output may follow a
+    record on its line."""
+    dec, rows, at = json.JSONDecoder(), [], 0
+    while (at := out.find(tag + " {", at)) >= 0:
+        row, at = dec.raw_decode(out, at + len(tag) + 1)
+        rows.append(row)
+    return rows
+
+
+def _scaling_dino(work: str, root: str, cards: int) -> dict:
+    """The DINO run on ``cards`` cards: epoch 1's step ms (the slowest
+    rank's) and images/s over every rank."""
+    out = os.path.join(work, f"dino_out_{cards}")
+    args = ["-m", "tpu_ac_torch.cli.dino", "--data_path", root,
+            "--output_dir", out, "--saveckp_freq", "0", "--device_aug",
+            "--data_cache", os.path.join(work, "dino_cache"),
+            "--batch_size_per_gpu", str(DINO_BATCH), "--epochs", "2",
+            "--max_steps_per_epoch", str(SCALING_DINO_STEPS)]
+    launch = ([sys.executable] if cards == 1 else
+              [sys.executable, "-m", "torch.distributed.run",
+               "--nproc_per_node", str(cards)])
+    epochs = [e for e in _json_lines(_run_logged(launch + args, 900),
+                                     "dino_epoch") if e["epoch"] == 1]
+    shutil.rmtree(out)
+    if len(epochs) != cards:
+        _fatal(f"dino on {cards} cards: {len(epochs)} epoch-1 lines")
+    step_ms = max(e["step_ms"] for e in epochs)
+    return dict(step_ms=step_ms,
+                ranks_step_ms=[e["step_ms"] for e in epochs],
+                img_s=DINO_BATCH * cards / (step_ms / 1e3),
+                peak_gib=max(e["peak_gib"] for e in epochs),
+                steps=epochs[0]["steps"])
+
+
+def _scaling_scan(work: str, data: str, cards: int) -> dict:
+    """SCAN's SimCLR stage with ``train_dp: cards`` (off for one card):
+    epoch 1's step ms (the slowest rank's) and images/s."""
+    from tpu_ac_torch.config import CONFIG_DIR
+
+    out = os.path.join(work, f"scan_out_{cards}")
+    env = os.path.join(work, f"scan_env_{cards}.yml")
+    with open(env, "w") as f:
+        f.write(f"root_dir: {out}\ndata_root: {data}\n")
+    with open(os.path.join(CONFIG_DIR, "pretext",
+                           "simclr_cifar-10.yml")) as f:
+        text = f.read()
+    exp = os.path.join(work, f"scan_simclr_{cards}.yml")
+    with open(exp, "w") as f:
+        f.write(text.replace("\nepochs:", "\n# recipe epochs:")
+                + "epochs: 2\n" + (f"train_dp: {cards}\n" if cards > 1
+                                   else ""))
+    stdout = _run_logged([sys.executable, "-m", "tpu_ac_torch.cli.scan",
+                          "simclr", "--config_env", env, "--config_exp", exp],
+                         900)
+    epochs = [e for e in _json_lines(stdout, "scan_epoch")
+              if e["epoch"] == 1]
+    shutil.rmtree(out)
+    if len(epochs) != cards:
+        _fatal(f"scan on {cards} cards: {len(epochs)} epoch-1 lines")
+    step_ms = max(e["step_ms"] for e in epochs)
+    return dict(step_ms=step_ms,
+                ranks_step_ms=[e["step_ms"] for e in epochs],
+                img_s=epochs[0]["images_per_step"] / (step_ms / 1e3),
+                data_wait_ms=max(e["data_wait_ms"] for e in epochs),
+                steps=epochs[0]["steps"])
+
+
+def phase_scaling(torch, cards: int) -> dict:
+    """The scaling mode (see the comment above)."""
+    if torch.cuda.device_count() < cards:
+        _fatal(f"--scaling {cards}: {torch.cuda.device_count()} cards")
+    work = os.path.join(HERE, "build", "scaling")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        root = _make_imagefolder(
+            work, SCALING_DINO_STEPS * DINO_BATCH * cards)
+        data = _make_cifar10(work)
+        runs = {"dino": {n: _scaling_dino(work, root, n)
+                         for n in (1, cards)},
+                "scan_simclr": {n: _scaling_scan(work, data, n)
+                                for n in (1, cards)}}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for name, r in runs.items():
+        r["scaling"] = r[cards]["img_s"] / r[1]["img_s"]
+        print(f"{name}: 1 card {r[1]['step_ms']:.2f} ms a step, "
+              f"{r[1]['img_s']:.1f} images/s; {cards} cards "
+              f"{r[cards]['step_ms']:.2f} ms a step, "
+              f"{r[cards]['img_s']:.1f} images/s; scaling "
+              f"{r['scaling']:.3f} (ideal {cards})", flush=True)
+    return {k: {str(n): v for n, v in r.items()} for k, r in runs.items()}
+
+
 def _round6(tree):
     """``tree`` with every float at 6 significant digits."""
     if isinstance(tree, dict):
@@ -3708,6 +4487,13 @@ def _print_ptxas(name: str, log: str) -> None:
 
 
 def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scaling", type=int, metavar="N",
+                    help="instead of the phases: DINO and SCAN's SimCLR on "
+                         "1 card and on N (see phase_scaling)")
+    args = ap.parse_args()
     if not os.path.isfile(os.path.join(HERE, "tpu_ac_torch",
                                        "kernels", "distances.py")):
         _fatal("tpu_ac_torch/ not found next to chip_smoke.py: run it "
@@ -3723,6 +4509,12 @@ def main() -> None:
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, python {sys.version.split()[0]}",
           flush=True)
+    if args.scaling:
+        scaling = phase_scaling(torch, args.scaling)
+        _check_no_children()
+        print(card)
+        print(json.dumps({"scaling": {"cards": args.scaling, **scaling}}))
+        return
 
     from tpu_ac_torch.kernels import attention as attn
     from tpu_ac_torch.kernels import build
@@ -3789,6 +4581,11 @@ def main() -> None:
         if viz_launches:
             _fatal(f"the viz path launched {viz_launches} kernels of the "
                    "clustering path")
+        dist.LAUNCHES = dist.WINDOW_LAUNCHES = attn.LAUNCHES = 0
+        dist_run = phase_dist(torch, os.path.join(work, "dist"))
+        if dist.LAUNCHES + dist.WINDOW_LAUNCHES + attn.LAUNCHES:
+            _fatal("the dist phase launched kernels of the clustering path "
+                   "in this process")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     # the supervised run pads its 84 queries to the 32-image bucket (96)
@@ -3824,6 +4621,10 @@ def main() -> None:
                          mesh_run["launches"], window_err, window_timing))
     kernels.append(entry("flash_attention", FLASH_SOURCE, FLASH_REPLACES,
                          flash_run["launches"], flash_err, flash_timing))
+    kernels[-1]["head_dim_checks"] = {
+        str(dh): {d: _round6(r) for d, r in rows.items()}
+        for dh, rows in FLASH_WIDE.items()}
+    kernels[-1]["head_dim_timing"] = _round6(flash_timing["wide"])
     t = flash_timing
     print(f"mesh path: alpha " + ", ".join(
         f"{c} {ms:.1f} ms" for c, ms in mesh_run["alpha_ms"].items())
@@ -3891,6 +4692,7 @@ def main() -> None:
         "evals": _round6(evals_run),
         "export": _round6(export_run["runs"]),
         "viz": _round6(viz_run),
+        "dist": _round6(dist_run),
         "mesh": {"sweep_img_s": r4(mesh_run["sweep_img_s"]),
                  "window_ms": r4(window_timing["ms"]),
                  "w_gap_over_bound": float(
@@ -3904,4 +4706,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        _stop_children()

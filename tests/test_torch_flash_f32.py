@@ -12,10 +12,12 @@ catches a kernel that loses the lo terms.  The kernel itself is held against the
 version by the ``cuda``-marked tests (skipped without a card) and by
 chip_smoke.py.
 
-Head dims below 64 are zero-padded to 64 (``pad_head_dim``), as tpu_ac pads
-them to 128 lanes; the plain attention of the padded inputs, sliced back,
-equals tpu_ac's wrapper with JAX's Pallas TPU kernel monkeypatched to its
-own ``mha_reference`` (as tests/test_torch_attention.py does).  Tolerance:
+Head dims are zero-padded to a multiple of 64 (``pad_head_dim``), as tpu_ac
+pads them to 128 lanes; over 64 the wrapper launches once per 64-column
+slice of V (``flash_by_slices``, run here with each launch's plain
+function).  The plain attention of the padded inputs, sliced back, equals
+tpu_ac's wrapper with JAX's Pallas TPU kernel monkeypatched to its own
+``mha_reference`` (as tests/test_torch_attention.py does).  Tolerance:
 rtol/atol 1e-5 (f32 on both sides, differently ordered sums).
 """
 
@@ -173,12 +175,80 @@ def test_padded_head_dim_matches_tpu_ac(jax_flash, dh, n_valid):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-def test_head_dim_above_64_raises():
-    """Dh > 64 is ROADMAP.md Queue 2 item 5; the check comes before any
-    launch."""
-    q, k, v = _normal((1, 2, 17, 80), seed=3)
-    with pytest.raises(ValueError, match="Queue 2 item 5"):
-        tattn._flash_cuda(q, k, v, SCALE, None)
+def _slice_plain(q, k, v, out, scale, ids):
+    """One kernel launch's function in plain PyTorch: the attention of the
+    padded q, k (every 64-column chunk) on the 64-column slice v, written
+    into the slice out."""
+    logits = q @ k.transpose(-2, -1) * scale
+    if ids is not None:
+        logits = logits.masked_fill(ids[:, None] != ids[None, :],
+                                    float("-inf"))
+    out.copy_(torch.softmax(logits, dim=-1) @ v)
+
+
+@pytest.mark.parametrize("n_valid", [None, 128])
+@pytest.mark.parametrize("dh", [80, 128, 200])
+def test_wide_head_dim_matches_tpu_ac(jax_flash, dh, n_valid):
+    """Head dims over 64: the wrapper's plan (flash_by_slices: Dh
+    zero-padded to a multiple of 64, one launch per 64-column slice of V
+    and of the output) with each launch's plain function, against tpu_ac's
+    wrapper (which pads Dh to 128 lanes itself)."""
+    s = 200
+    q, k, v = (t.numpy() for t in _normal((2, 3, s, dh), seed=dh))
+    bias = None if n_valid is None else _key_mask(s, n_valid)
+    want = np.asarray(jax_flash(
+        *(jnp.asarray(x) for x in (q, k, v)), SCALE,
+        None if bias is None else jnp.asarray(bias)))
+    ids = None if bias is None else tattn.bias_to_segment_ids(
+        torch.from_numpy(bias), s)
+    got = tattn.flash_by_slices(
+        *(torch.from_numpy(x) for x in (q, k, v)),
+        lambda *qkvo: _slice_plain(*qkvo, SCALE, ids))
+    assert got.shape == want.shape == (2, 3, s, dh)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dh,n_launch", [(16, 1), (64, 1), (80, 2),
+                                          (128, 2), (200, 4)])
+def test_slice_plan(dh, n_launch):
+    """What each launch is given: q and k with every column, zero-padded
+    to 64 n; V's and the output's slice j (columns 64 j .. 64 j + 63) as
+    views into the [B, S, H, 64 n] output the wrapper allocated; a head dim
+    that is a multiple of 64 is not copied."""
+    q, k, v = _normal((2, 3, 17, dh), seed=5)
+    calls = []
+
+    def launch(qp, kp, vj, oj):
+        calls.append((qp, kp, vj, oj))
+        oj.copy_(vj * 2)
+
+    out = tattn.flash_by_slices(q, k, v, launch)
+    width = 64 * n_launch
+    assert len(calls) == n_launch
+    assert out.shape == (2, 3, 17, dh)
+    assert torch.equal(out, v * 2)
+    base = calls[0][3].data_ptr()
+    for j, (qp, kp, vj, oj) in enumerate(calls):
+        assert qp.shape == kp.shape == (2, 3, 17, width)
+        assert torch.equal(qp[..., :dh], q) and not bool(qp[..., dh:].any())
+        assert vj.shape == oj.shape == (2, 3, 17, 64)
+        assert oj.stride() == (17 * 3 * width, width, 3 * width, 1)
+        assert oj.data_ptr() == base + 64 * j * 4
+    if dh % 64 == 0:
+        assert calls[0][0] is q and calls[0][1] is k
+
+
+def test_3xtf32_within_flash_tolerance_wide_head():
+    """Dh = 80, zero-padded to 128: the kernel sums QK^T over the two
+    64-column chunks in its 8-deep steps, in the order of one 128-deep
+    product, and runs P.V per 64-column slice of V, so its arithmetic is
+    ``_emulate`` of the padded inputs; within the f32 limit as at 64
+    (S = 200: three full key tiles and a ragged one of 8)."""
+    q, k, v = _normal((1, 2, 200, 80), seed=6)
+    padded = [tattn.pad_head_dim(t) for t in (q, k, v)]
+    got = _emulate(*padded, SCALE)[..., :80]
+    share = _share_of_tol(got, q, k, v)
+    assert share < 0.5, share
 
 
 def _card():

@@ -126,8 +126,29 @@ def test_scan_sees_the_package():
                 "distributed/launch.py", "utils/export.py",
                 "cli/export.py", "viz/__init__.py", "viz/plots.py",
                 "viz/video.py", "cli/draw.py", "cli/visualize_attention.py",
-                "cli/video_generation.py", "tutorial.py"):
+                "cli/video_generation.py", "tutorial.py",
+                "distributed/collectives.py", "distributed/mesh.py"):
         assert f"tpu_ac_torch/{mod}" in names
+
+
+def test_process_group_entry_points_load_no_jax():
+    """Importing the modules of the process group and the CLIs that join
+    it (what torchrun and the SCAN CLI's spawned ranks import) loads no
+    jax, tpu_ac or sklearn module, however deep."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "import tpu_ac_torch.distributed.collectives, "
+            "tpu_ac_torch.cli.dino, tpu_ac_torch.cli.scan\n"
+            "from tpu_ac_torch.distributed import multihost_init\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{BANNED!r})\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
 
 
 def test_hub_has_every_factory_of_tpu_ac():

@@ -9,8 +9,20 @@ ImageFolder walk -> multi-crop augmentation (PIL on the host, or
 ``--device_aug`` on the card) -> train step -> checkpoint and JSON-lines
 ``log.txt`` each epoch, with resume from the newest checkpoint and a NaN
 abort one dispatch late.  Checkpoints are ``tpu_ac``'s format: a run of
-either package resumes in the other.  One process, one device: the
-multi-process launcher is not ported yet.
+either package resumes in the other.
+
+Across processes, one card a rank:
+
+    torchrun --nproc_per_node N -m tpu_ac_torch.cli.dino --data_path DIR
+
+joins torchrun's group (``distributed.multihost_init``: nccl, or gloo
+with ``--device cpu``); a caller that has initialized a group calls
+``main(argv)`` in each rank and the CLI joins it.  Each rank trains on its
+shard of every epoch (the schedules at the global batch, batch_size_per_gpu
+x N, and an aug seed of its own), the step is over the global batch
+(``train/dino.py``), every rank starts from the same state (checked by
+checksum after the init or the resume) and only rank 0 writes checkpoints
+and ``log.txt``.
 
 After each epoch a ``dino_epoch {...}`` JSON line gives the epoch's
 steps, the device time a step (CUDA events from the first dispatch to
@@ -44,6 +56,12 @@ from tpu_ac_torch.data.augment import DINOAugmentation
 from tpu_ac_torch.data.imagefolder import ImageFolder
 from tpu_ac_torch.data.prefetch import to_device
 from tpu_ac_torch.device import resolve_device
+from tpu_ac_torch.distributed import (
+    multihost_init,
+    process_count,
+    process_index,
+)
+from tpu_ac_torch.distributed.collectives import check_same_on_ranks
 from tpu_ac_torch.models.vit import VIT_BASE, VIT_SMALL, VIT_TINY, ViTConfig
 from tpu_ac_torch.train.dino import (
     DINOConfig,
@@ -178,12 +196,14 @@ def aug_seed(seed: int, rank: int, it: int) -> int:
 
 
 def train_dino(args) -> dict:
+    # torchrun's group, or the caller's (joined as it is); a no-op alone
+    if process_count() == 1:
+        multihost_init(backend="gloo" if args.device == "cpu" else None)
+    n_procs, rank = process_count(), process_index()
     dev = resolve_device(args.device)
     fix_seeds(args.seed)
     dataset = ImageFolder(args.data_path)
     print(f"Data loaded: there are {len(dataset)} images.")
-    # one process: the multi-process launcher is not ported yet
-    n_procs, rank = 1, 0
 
     vit_cfg = ViTConfig(
         **{**_ARCHS[args.arch].__dict__, "patch_size": args.patch_size,
@@ -286,6 +306,7 @@ def train_dino(args) -> dict:
         state, meta = restore_checkpoint(ckpt, state)
         start_epoch = meta["extra"].get("epoch", 0) + 1
         print(f"Resumed from {ckpt} at epoch {start_epoch}")
+    check_same_on_ranks(_leaves(state), "the initial DINO state")
 
     os.makedirs(args.output_dir, exist_ok=True)
     stats = {}
@@ -378,6 +399,10 @@ def train_dino(args) -> dict:
                             and i >= args.max_steps_per_epoch):
                         break
                     if wall0 is None:
+                        if n_procs > 1:
+                            # every rank's clock from one start: rank 0
+                            # may still be writing the last checkpoint
+                            torch.distributed.barrier()
                         wall0 = time.perf_counter()
                         if cuda:
                             t_start.record()
@@ -437,8 +462,19 @@ def train_dino(args) -> dict:
     return stats
 
 
-def main(argv=None) -> None:
-    train_dino(build_parser().parse_args(argv))
+def _leaves(state) -> dict[str, torch.Tensor]:
+    """The state's tensors by path (student, teacher, Adam, center)."""
+    opt = state.opt_state
+    return {**{f"student/{k}": v for k, v in state.student.items()},
+            **{f"teacher/{k}": v for k, v in state.teacher.items()},
+            **{f"mu/{k}": v for k, v in opt.mu.items()},
+            **{f"nu/{k}": v for k, v in opt.nu.items()},
+            "count": opt.count, "center": state.center}
+
+
+def main(argv=None) -> dict:
+    """Train; returns the last epoch's averaged metrics."""
+    return train_dino(build_parser().parse_args(argv))
 
 
 if __name__ == "__main__":

@@ -24,10 +24,14 @@ Optional config keys, as in ``tpu_ac``:
   mesh (``knn_ip_sharded``): N cards, or N x the CPU with ``--device cpu``.
 - ``train_dp: N``: batches trimmed to a multiple of N, exactly as
   ``tpu_ac`` trims them; ``tpu_ac``'s sharded step equals the unsharded
-  one (sync-BN), so on a mesh that repeats one device (``--device cpu``)
-  the step runs on the whole batch.  A mesh of N distinct cards raises
-  ``NotImplementedError`` (DDP with SyncBatchNorm is ROADMAP Queue 1
-  item 14).
+  one (sync-BN).  On N cards the training stages (simclr, scan, selflabel)
+  run one process a card, each on its share of every batch, the step over
+  the global batch (``train.scan.dp_shard_step``): the CLI starts the N
+  ranks itself (spawn, nccl) when no group exists, and joins torchrun's
+  group, or a caller's, when one does.  Each rank has its own aug pool;
+  rank 0 alone saves and, after the training, fills the bank, mines and
+  evaluates.  On a mesh that repeats one device (``--device cpu``) the
+  step runs on the whole batch in one process.
 
 Each training epoch prints a ``scan_epoch {json}`` line (stage, steps,
 the step's ms by CUDA events from the first dispatch to the last step's
@@ -42,6 +46,7 @@ import argparse
 import dataclasses
 import json
 import os
+import socket
 import time
 
 import numpy as np
@@ -67,7 +72,14 @@ from tpu_ac_torch.data.classification import (
 )
 from tpu_ac_torch.data.prefetch import ParallelAugPool, to_device
 from tpu_ac_torch.device import precision_scope, resolve_device
-from tpu_ac_torch.distributed import Mesh, get_mesh
+from tpu_ac_torch.distributed import (
+    Mesh,
+    get_mesh,
+    multihost_init,
+    process_count,
+    process_index,
+)
+from tpu_ac_torch.distributed.collectives import check_same_on_ranks
 from tpu_ac_torch.models.resnet_cifar import (
     RESNET18_CIFAR,
     RESNET18_STL,
@@ -167,11 +179,29 @@ def _train_step(cfg, step_fn, n_batch_args: int, dev: torch.device):
     """A stage's train step, data-parallel under ``train_dp: N``
     (``train.scan.dp_shard_step``): the reference's torch.nn.DataParallel
     around the SCAN-stage models (scan.py:48, selflabel.py:45,
-    simclr.py:44)."""
-    dp = cfg.get("train_dp")
-    if not dp:
+    simclr.py:44).  In a group of N processes each rank runs it on its
+    own device."""
+    dp = _train_dp(cfg)
+    w = process_count()
+    if w > 1 and dp != w:
+        raise ValueError(f"train_dp: {dp} in a group of {w} processes: "
+                         "they must be equal")
+    if dp == 1:
         return step_fn
-    return dp_shard_step(step_fn, _mesh(int(dp), dev), n_batch_args)
+    mesh = Mesh([dev] * w) if w > 1 else _mesh(dp, dev)
+    return dp_shard_step(step_fn, mesh, n_batch_args)
+
+
+def _rank_share(idxs: np.ndarray, pos: int) -> tuple[np.ndarray, int]:
+    """This rank's share of a global batch (trimmed to a multiple of the
+    ranks): its indices and the position of the first, which keys its
+    augmentation, so the ranks' crops are the one-process run's."""
+    w = process_count()
+    if w == 1:
+        return idxs, pos
+    m = len(idxs) // w
+    r = process_index()
+    return idxs[r * m:(r + 1) * m], pos + r * m
 
 
 def _print_json(tag: str, row: dict) -> None:
@@ -200,6 +230,10 @@ def _run_epoch(stage: str, epoch: int, batches, run_step,
         if batch is None:
             break
         if wall0 is None:
+            if process_count() > 1:
+                # every rank's clock from one start: rank 0 may still be
+                # writing the last checkpoint
+                torch.distributed.barrier()
             wall0 = time.perf_counter()
             if cuda:
                 start.record()
@@ -207,7 +241,7 @@ def _run_epoch(stage: str, epoch: int, batches, run_step,
             wait_s += time.perf_counter() - t0
         run_step(*batch)
         steps += 1
-        images += len(batch[0])
+        images += len(batch[0]) * process_count()  # every rank's share
     if wall0 is None:
         return
     if cuda:
@@ -282,6 +316,7 @@ def run_simclr(cfg, device: str | torch.device = "cuda") -> None:
     if ckpt:
         state, meta = restore_checkpoint(ckpt, state)
         start_epoch = meta["extra"]["epoch"] + 1
+    check_same_on_ranks(state.params, "the initial SimCLR params")
 
     step = _train_step(cfg, make_simclr_step(
         mcfg, opt, cfg.get("temperature", 0.1)), 2, dev)
@@ -295,7 +330,8 @@ def run_simclr(cfg, device: str | torch.device = "cuda") -> None:
                     pos = 0
                     for idxs in shuffled_batches(len(ds), bs, epoch,
                                                multiple_of=_train_dp(cfg)):
-                        yield (lambda idxs=idxs, pos=pos: (
+                        mine, start = _rank_share(idxs, pos)
+                        yield (lambda idxs=mine, pos=start: (
                             put(pool.stack(aug, ds.get_pil, idxs,
                                            epoch=epoch, start=pos,
                                            stream="i")),
@@ -317,8 +353,12 @@ def run_simclr(cfg, device: str | torch.device = "cuda") -> None:
                 fetch.flush()
                 print(f"simclr epoch {epoch}: loss {np.mean(losses):.4f}",
                       flush=True)
-                save_checkpoint(cfg.pretext_dir, "checkpoint", state,
-                                step=epoch, extra={"epoch": epoch}, keep=1)
+                if process_index() == 0:
+                    save_checkpoint(cfg.pretext_dir, "checkpoint", state,
+                                    step=epoch, extra={"epoch": epoch},
+                                    keep=1)
+            if process_index() > 0:
+                return  # rank 0 fills the bank and mines
 
             # the memory bank from the DETERMINISTIC val transform
             # (simclr.py:64,133: center crop, no random crop/flip), then
@@ -437,6 +477,7 @@ def run_scan(cfg, device: str | torch.device = "cuda") -> None:
 
     opt = adam(cfg.get("scan_lr", 1e-4))
     state = init_train_state(params, bn, opt)
+    check_same_on_ranks(state.params, "the initial SCAN params")
     step = _train_step(cfg, make_scan_step(
         mcfg, opt, cfg.get("entropy_weight", 2.0),
         update_cluster_head_only=cfg.get("update_cluster_head_only", False)),
@@ -463,10 +504,14 @@ def run_scan(cfg, device: str | torch.device = "cuda") -> None:
                     for idxs in shuffled_batches(len(ds), bs, epoch,
                                                multiple_of=_train_dp(cfg)):
                         def t(idxs=idxs, pos=pos):
+                            # drawn for the global batch on every rank
                             nbr = neighbors[idxs, :][
                                 np.arange(len(idxs)),
                                 rng.integers(0, neighbors.shape[1],
                                              len(idxs))]
+                            mine, pos = _rank_share(idxs, pos)
+                            nbr = _rank_share(nbr, 0)[0]
+                            idxs = mine
                             a = pool.stack(transform, ds.get_pil, idxs,
                                            epoch=epoch, start=pos,
                                            stream="a")
@@ -495,6 +540,8 @@ def run_scan(cfg, device: str | torch.device = "cuda") -> None:
                 fetch.flush()
                 print(f"scan epoch {epoch}: loss {np.mean(totals):.4f}",
                       flush=True)
+            if process_index() > 0:
+                return  # rank 0 saves and evaluates
             best = scan_evaluate_heads(head_losses)
             save_checkpoint(cfg.scan_dir, "model",
                             {"params": state.params, "bn": state.bn_state},
@@ -583,6 +630,7 @@ def run_selflabel(cfg, device: str | torch.device = "cuda") -> None:
 
     opt = sgd(cfg.get("selflabel_lr", 0.03), momentum=0.9)
     state = init_train_state(sl_params, scan_pb["bn"], opt)
+    check_same_on_ranks(state.params, "the initial self-label params")
     step = _train_step(cfg, make_selflabel_step(
         mcfg, opt, threshold=cfg.get("confidence_threshold", 0.99),
         apply_class_balancing=cfg.get("apply_class_balancing", True)),
@@ -602,7 +650,8 @@ def run_selflabel(cfg, device: str | torch.device = "cuda") -> None:
                     pos = 0
                     for idxs in shuffled_batches(len(ds), bs, epoch,
                                                multiple_of=_train_dp(cfg)):
-                        yield (lambda idxs=idxs, pos=pos: (
+                        mine, start = _rank_share(idxs, pos)
+                        yield (lambda idxs=mine, pos=start: (
                             put(pool.stack(weak, ds.get_pil, idxs,
                                            epoch=epoch, start=pos,
                                            stream="w")),
@@ -624,6 +673,8 @@ def run_selflabel(cfg, device: str | torch.device = "cuda") -> None:
                 fetch.flush()
                 print(f"selflabel epoch {epoch}: loss {np.mean(losses):.4f}",
                       flush=True)
+            if process_index() > 0:
+                return  # rank 0 saves and evaluates
             save_checkpoint(cfg.selflabel_dir, "model",
                             {"params": state.params, "bn": state.bn_state},
                             step=0)
@@ -669,6 +720,50 @@ def run_eval(cfg, device: str | torch.device = "cuda") -> dict:
 
 STAGES = {"simclr": run_simclr, "moco": run_moco, "scan": run_scan,
           "selflabel": run_selflabel, "eval": run_eval}
+# the stages that train_dp trains across processes
+TRAINED = ("simclr", "scan", "selflabel")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, stage: str, cfg, world: int, port: int) -> None:
+    """One spawned rank: its card is cuda:rank, the group nccl."""
+    os.environ["LOCAL_RANK"] = str(rank)
+    multihost_init(f"127.0.0.1:{port}", world, rank)
+    try:
+        STAGES[stage](cfg, "cuda")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_stage(stage: str, cfg, device: str = "cuda"):
+    """Run one stage: in torchrun's group or a caller's where there is one;
+    else, for a training stage whose ``train_dp`` names N > 1 cards on
+    ``cuda``, in N processes that this call starts (one a card, nccl) and
+    joins before it returns; else in this process."""
+    if process_count() == 1:
+        multihost_init(backend="gloo" if device == "cpu" else None)
+    dp = _train_dp(cfg)
+    if (process_count() == 1 and dp > 1 and stage in TRAINED
+            and resolve_device(device).type == "cuda"):
+        import torch.multiprocessing as mp
+        from multiprocessing import resource_tracker
+
+        get_mesh(dp)  # raises unless there are N cards
+        try:
+            mp.start_processes(_rank_main, nprocs=dp, join=True,
+                               start_method="spawn",
+                               args=(stage, cfg, dp, _free_port()))
+        finally:
+            # the spawn context's semaphore tracker: no process outlives
+            # the run
+            resource_tracker._resource_tracker._stop()
+        return None
+    return STAGES[stage](cfg, device)
 
 
 def main(argv=None):
@@ -680,7 +775,7 @@ def main(argv=None):
                    help="cuda (default) or cpu; cuda without a card raises.")
     args = p.parse_args(argv)
     cfg = create_config(args.config_env, args.config_exp)
-    return STAGES[args.stage](cfg, args.device)
+    return run_stage(args.stage, cfg, args.device)
 
 
 if __name__ == "__main__":

@@ -3,8 +3,8 @@
 //
 // Replaces tpu_ac/kernels/attention.py:26 `flash_attention_impl`, which calls
 // JAX's stock Pallas TPU flash kernel on a sequence padded to a multiple of
-// 128.  For q, k, v [B, H, S, 64] and an optional int32 segment-id vector
-// ids [S] shared by the batch:
+// 128.  For q, k, v [B, H, S, 64] (wider head dims below) and an optional
+// int32 segment-id vector ids [S] shared by the batch:
 //
 //     out[b, h, i] = sum_j softmax_j(q[b,h,i] . k[b,h,j] * scale) v[b,h,j]
 //
@@ -80,6 +80,18 @@
 //     15% slower (variant fa32_smem_split).  The online softmax, SEG, the
 //     m = -inf guard and the ragged tiles are the bf16 variant's.
 //
+// Head dims over 64 (WIDE instances, n_chunks > 1): the wrapper zero-pads
+// Dh to a multiple of 64 and launches once per 64-column slice of V and O;
+// q and k keep every column, as n_chunks chunks of 64.  The K/V ring then
+// walks items (key tile kt, chunk c), it = kt * n_chunks + c: each stage
+// holds Q's chunk c (Q no longer stays resident), K's chunk c of tile kt
+// and, at the last chunk, V's tile kt.  S accumulates over the chunks in
+// registers, and the softmax and P.V run at the last chunk, so V, O and the
+// accumulators keep the 64-column budget above.  The cost is Dh / 64
+// recomputations of S (one per V slice) and Q read once per key tile; the
+// Dh = 64 instances (every dino_vit* name) are untouched.  The Q ring makes
+// 96 KB of shared memory in bf16 (2 blocks an SM) and 128 KB in f32 (1).
+//
 // Bounds at the main path's shape (B=8, H=12, S=785, Dh=64; H100 SXM at
 // 700 W): operations 4*B*H*S^2*Dh = 15.14 GFLOP, 15.3 us at 989 TFLOP/s in
 // bf16; f32: 3 x 15.14 GFLOP at the 495 TFLOP/s of TF32, 91.8 us (226 us
@@ -110,6 +122,9 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int BF16_SMEM = (BQ + 2 * KV_STAGES * BN) * DH * 2;
 // f32: the Q tile and F32_STAGES K and V tiles, 256-B rows
 constexpr int F32_SMEM = (F32_BQ + 2 * F32_STAGES * BN) * DH * 4;
+// WIDE: a Q chunk a stage beside the K and V tiles
+constexpr int BF16_WIDE_SMEM = KV_STAGES * (BQ + 2 * BN) * DH * 2;
+constexpr int F32_WIDE_SMEM = F32_STAGES * (F32_BQ + 2 * BN) * DH * 4;
 
 struct Strides {
   long long b, h, s;  // elements
@@ -123,6 +138,7 @@ struct Args {
   const int* seg;  // [S] or nullptr
   Strides sq, sk, sv, so;
   int S;
+  int nc;   // 64-column chunks of q and k (1 unless WIDE)
   float c;  // scale * log2(e)
 };
 
@@ -241,15 +257,17 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // 3 blocks an SM without segment ids (168 registers a thread); the
-// segment-id instance takes 2, which it fills without spilling.
-template <bool SEG>
-__global__ void __launch_bounds__(BF16_THREADS, SEG ? 2 : 3)
+// segment-id instance takes 2, which it fills without spilling, as do the
+// WIDE ones (96 KB of shared memory).
+template <bool SEG, bool WIDE>
+__global__ void __launch_bounds__(BF16_THREADS, (SEG || WIDE) ? 2 : 3)
     flash_fwd_bf16(Args a) {
   constexpr int THREADS = BF16_THREADS;
   constexpr int MT = WARP_ROWS / 16;  // m16 tiles a warp
+  constexpr int Q_TILES = WIDE ? KV_STAGES : 1;  // resident, or one a stage
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ks = qs + BQ * DH;              // [KV_STAGES][BN * DH]
+  __nv_bfloat16* ks = qs + Q_TILES * BQ * DH;    // [KV_STAGES][BN * DH]
   __nv_bfloat16* vs = ks + KV_STAGES * BN * DH;  // [KV_STAGES][BN * DH]
 
   const int S = a.S;
@@ -270,17 +288,29 @@ __global__ void __launch_bounds__(BF16_THREADS, SEG ? 2 : 3)
   const int t = lane & 3;   // fragment column pair
   const int wr = (threadIdx.x >> 5) * WARP_ROWS;  // the warp's first row
   const int n_kt = (S + BN - 1) / BN;
+  const int nc = WIDE ? a.nc : 1;
+  const int n_it = n_kt * nc;
 
-  // cp.async groups: Q with K/V tile 0, then one group a tile (empty past
-  // the last), so "tile kt has landed" is always wait_group 1 at kt
-  load_rows_async<BQ, THREADS>(qs, q, a.sq.s, q0, S);
-  load_rows_async<BN, THREADS>(ks, k, a.sk.s, 0, S);
-  load_rows_async<BN, THREADS>(vs, v, a.sv.s, 0, S);
+  // item it (chunk c of key tile kt) into stage st: Q's chunk c (WIDE),
+  // K's chunk c of tile kt and, at the last chunk, V's tile kt
+  auto load_item = [&](int it, int st) {
+    const int kt = WIDE ? it / nc : it;
+    const int c = WIDE ? it - kt * nc : 0;
+    if (WIDE)
+      load_rows_async<BQ, THREADS>(qs + st * BQ * DH, q + c * DH, a.sq.s, q0,
+                                   S);
+    load_rows_async<BN, THREADS>(ks + st * BN * DH, k + c * DH, a.sk.s,
+                                 kt * BN, S);
+    if (c == nc - 1)
+      load_rows_async<BN, THREADS>(vs + st * BN * DH, v, a.sv.s, kt * BN, S);
+  };
+
+  // cp.async groups: Q with item 0, then one group an item (empty past
+  // the last), so "item it has landed" is always wait_group 1 at it
+  if (!WIDE) load_rows_async<BQ, THREADS>(qs, q, a.sq.s, q0, S);
+  load_item(0, 0);
   cp_async_commit();
-  if (n_kt > 1) {
-    load_rows_async<BN, THREADS>(ks + BN * DH, k, a.sk.s, BN, S);
-    load_rows_async<BN, THREADS>(vs + BN * DH, v, a.sv.s, BN, S);
-  }
+  if (n_it > 1) load_item(1, 1);
   cp_async_commit();
 
   // rows of this thread: wr + 16 mt + g (+ 8); rows >= S are never stored
@@ -303,41 +333,42 @@ __global__ void __launch_bounds__(BF16_THREADS, SEG ? 2 : 3)
     l[mt][0] = l[mt][1] = 0.f;
   }
 
-  for (int kt = 0; kt < n_kt; ++kt) {
+  // scores of the warp's rows x 64 keys (summed over the chunks when WIDE)
+  float s[MT][BN / 8][4];
+  for (int it = 0; it < n_it; ++it) {
+    const int kt = WIDE ? it / nc : it;
+    const int c = WIDE ? it - kt * nc : 0;
     const int k0 = kt * BN;
-    cp_async_wait<1>();  // tile kt has landed; kt + 1 may still fly
+    cp_async_wait<1>();  // item it has landed; it + 1 may still fly
     __syncthreads();
-    // tile kt + 2 goes to the stage of kt - 1, which every warp finished
-    // before the barrier above; it flies while kt and kt + 1 compute
-    if (kt + 2 < n_kt) {
-      const int st = (kt + 2) % KV_STAGES;
-      load_rows_async<BN, THREADS>(ks + st * BN * DH, k, a.sk.s, k0 + 2 * BN,
-                                   S);
-      load_rows_async<BN, THREADS>(vs + st * BN * DH, v, a.sv.s, k0 + 2 * BN,
-                                   S);
-    }
+    // item it + 2 goes to the stage of it - 1, which every warp finished
+    // before the barrier above; it flies while it and it + 1 compute
+    if (it + 2 < n_it) load_item(it + 2, (it + 2) % KV_STAGES);
     cp_async_commit();
     // a warp whose rows all lie past S (the last Q tile: S = 785 leaves 17
     // rows of 128) only helps with the copies and the barriers
     if (q0 + wr >= S) continue;
-    const __nv_bfloat16* kst = ks + (kt % KV_STAGES) * BN * DH;
-    const __nv_bfloat16* vst = vs + (kt % KV_STAGES) * BN * DH;
+    const int st = it % KV_STAGES;
+    const __nv_bfloat16* qst = qs + (WIDE ? st * BQ * DH : 0);
+    const __nv_bfloat16* kst = ks + st * BN * DH;
+    const __nv_bfloat16* vst = vs + st * BN * DH;
 
-    // scores of the warp's rows x 64 keys: 8 n-tiles of 8 keys; one
-    // ldmatrix.x4 gives the B fragments of two n-tiles at one 16-deep step
-    float s[MT][BN / 8][4];
+    // 8 n-tiles of 8 keys; one ldmatrix.x4 gives the B fragments of two
+    // n-tiles at one 16-deep step
+    if (c == 0) {
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int n = 0; n < BN / 8; ++n)
-        s[mt][n][0] = s[mt][n][1] = s[mt][n][2] = s[mt][n][3] = 0.f;
+        for (int n = 0; n < BN / 8; ++n)
+          s[mt][n][0] = s[mt][n][1] = s[mt][n][2] = s[mt][n][3] = 0.f;
+    }
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
       uint32_t qf[MT][4];  // the warp's Q rows as A fragments
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
         ldsm_x4(qf[mt],
-                qs + swz(wr + 16 * mt + (lane & 15), 2 * kk + (lane >> 4)));
+                qst + swz(wr + 16 * mt + (lane & 15), 2 * kk + (lane >> 4)));
 #pragma unroll
       for (int np = 0; np < BN / 16; ++np) {
         uint32_t kb[4];
@@ -350,6 +381,7 @@ __global__ void __launch_bounds__(BF16_THREADS, SEG ? 2 : 3)
         }
       }
     }
+    if (c != nc - 1) continue;  // more chunks of S to come
 
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
@@ -458,14 +490,17 @@ __global__ void __launch_bounds__(BF16_THREADS, SEG ? 2 : 3)
   }
 }
 
-// 2 blocks an SM (96 KB of shared memory each; at most 255 registers).
-template <bool SEG>
-__global__ void __launch_bounds__(F32_THREADS, 2) flash_fwd_f32(Args a) {
+// 2 blocks an SM (96 KB of shared memory each; at most 255 registers);
+// WIDE: 1 (128 KB).
+template <bool SEG, bool WIDE>
+__global__ void __launch_bounds__(F32_THREADS, WIDE ? 1 : 2)
+    flash_fwd_f32(Args a) {
   constexpr int THREADS = F32_THREADS;
   constexpr int MT = F32_WARP_ROWS / 16;  // m16 tiles a warp
+  constexpr int Q_TILES = WIDE ? F32_STAGES : 1;  // resident, or one a stage
   extern __shared__ __align__(128) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
-  float* ks = qs + F32_BQ * DH;               // [F32_STAGES][BN * DH]
+  float* ks = qs + Q_TILES * F32_BQ * DH;     // [F32_STAGES][BN * DH]
   float* vs = ks + F32_STAGES * BN * DH;  // [F32_STAGES][BN * DH]
 
   const int S = a.S;
@@ -482,12 +517,26 @@ __global__ void __launch_bounds__(F32_THREADS, 2) flash_fwd_f32(Args a) {
   const int t = lane & 3;   // fragment column
   const int wr = (threadIdx.x >> 5) * F32_WARP_ROWS;  // the warp's first row
   const int n_kt = (S + BN - 1) / BN;
+  const int nc = WIDE ? a.nc : 1;
+  const int n_it = n_kt * nc;
 
-  // cp.async groups: Q with K/V tile 0, then tile kt + 1 at tile kt, so
-  // "tile kt has landed" is wait_group 0 at kt
-  load_rows_async<F32_BQ, THREADS>(qs, q, a.sq.s, q0, S);
-  load_rows_async<BN, THREADS>(ks, k, a.sk.s, 0, S);
-  load_rows_async<BN, THREADS>(vs, v, a.sv.s, 0, S);
+  // item it (chunk c of key tile kt) into stage st, as in the bf16 kernel
+  auto load_item = [&](int it, int st) {
+    const int kt = WIDE ? it / nc : it;
+    const int c = WIDE ? it - kt * nc : 0;
+    if (WIDE)
+      load_rows_async<F32_BQ, THREADS>(qs + st * F32_BQ * DH, q + c * DH,
+                                       a.sq.s, q0, S);
+    load_rows_async<BN, THREADS>(ks + st * BN * DH, k + c * DH, a.sk.s,
+                                 kt * BN, S);
+    if (c == nc - 1)
+      load_rows_async<BN, THREADS>(vs + st * BN * DH, v, a.sv.s, kt * BN, S);
+  };
+
+  // cp.async groups: Q with item 0, then item it + 1 at item it, so "item
+  // it has landed" is wait_group 0 at it
+  if (!WIDE) load_rows_async<F32_BQ, THREADS>(qs, q, a.sq.s, q0, S);
+  load_item(0, 0);
   cp_async_commit();
 
   int qid[MT][2];
@@ -509,31 +558,34 @@ __global__ void __launch_bounds__(F32_THREADS, 2) flash_fwd_f32(Args a) {
     l[mt][0] = l[mt][1] = 0.f;
   }
 
-  for (int kt = 0; kt < n_kt; ++kt) {
+  // scores of the warp's rows x 64 keys (summed over the chunks when WIDE)
+  float s[MT][BN / 8][4];
+  for (int it = 0; it < n_it; ++it) {
+    const int kt = WIDE ? it / nc : it;
+    const int c = WIDE ? it - kt * nc : 0;
     const int k0 = kt * BN;
-    cp_async_wait<0>();  // tile kt has landed
+    cp_async_wait<0>();  // item it has landed
     __syncthreads();
-    // tile kt + 1 goes to the stage of kt - 1, which every warp finished
-    // before the barrier above; it flies while kt computes
-    if (kt + 1 < n_kt) {
-      const int st = (kt + 1) % F32_STAGES;
-      load_rows_async<BN, THREADS>(ks + st * BN * DH, k, a.sk.s, k0 + BN, S);
-      load_rows_async<BN, THREADS>(vs + st * BN * DH, v, a.sv.s, k0 + BN, S);
-    }
+    // item it + 1 goes to the stage of it - 1, which every warp finished
+    // before the barrier above; it flies while it computes
+    if (it + 1 < n_it) load_item(it + 1, (it + 1) % F32_STAGES);
     cp_async_commit();
     // a warp whose rows all lie past S only helps with the copies
     if (q0 + wr >= S) continue;
-    const float* kst = ks + (kt % F32_STAGES) * BN * DH;
-    const float* vst = vs + (kt % F32_STAGES) * BN * DH;
+    const int st = it % F32_STAGES;
+    const float* qst = qs + (WIDE ? st * F32_BQ * DH : 0);
+    const float* kst = ks + st * BN * DH;
+    const float* vst = vs + st * BN * DH;
 
-    // scores of the warp's rows x 64 keys: 8 n-tiles of 8 keys, 8 steps of
-    // 8 dims; one ldmatrix.x4 gives the B fragments of two n-tiles
-    float s[MT][BN / 8][4];
+    // 8 n-tiles of 8 keys, 8 steps of 8 dims; one ldmatrix.x4 gives the B
+    // fragments of two n-tiles
+    if (c == 0) {
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int n = 0; n < BN / 8; ++n)
-        s[mt][n][0] = s[mt][n][1] = s[mt][n][2] = s[mt][n][3] = 0.f;
+        for (int n = 0; n < BN / 8; ++n)
+          s[mt][n][0] = s[mt][n][1] = s[mt][n][2] = s[mt][n][3] = 0.f;
+    }
 #pragma unroll
     for (int kk = 0; kk < DH / 8; ++kk) {
       // A fragments of the warp's Q rows; matrix lane >> 3 takes rows + 8
@@ -542,9 +594,9 @@ __global__ void __launch_bounds__(F32_THREADS, 2) flash_fwd_f32(Args a) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         uint32_t qf[4];
-        ldsm_x4(qf, qs + swz<float>(wr + 16 * mt + (lane & 7) +
-                                        ((lane >> 3) & 1) * 8,
-                                    2 * kk + (lane >> 4)));
+        ldsm_x4(qf, qst + swz<float>(wr + 16 * mt + (lane & 7) +
+                                         ((lane >> 3) & 1) * 8,
+                                     2 * kk + (lane >> 4)));
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           split_tf32(__uint_as_float(qf[e]), qh[mt][e], ql[mt][e]);
@@ -568,6 +620,7 @@ __global__ void __launch_bounds__(F32_THREADS, 2) flash_fwd_f32(Args a) {
         }
       }
     }
+    if (c != nc - 1) continue;  // more chunks of S to come
 
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
@@ -697,31 +750,33 @@ static cudaError_t launch(void (*kernel)(Args), bool (&raised)[64],
   return cudaGetLastError();
 }
 
-template <bool SEG>
+template <bool SEG, bool WIDE>
 static cudaError_t launch_bf16(const Args& a, dim3 grid, cudaStream_t s) {
   static bool raised[64];
-  return launch<BF16_SMEM>(&flash_fwd_bf16<SEG>, raised, a, grid,
-                           BF16_THREADS, s);
+  return launch<WIDE ? BF16_WIDE_SMEM : BF16_SMEM>(
+      &flash_fwd_bf16<SEG, WIDE>, raised, a, grid, BF16_THREADS, s);
 }
 
-template <bool SEG>
+template <bool SEG, bool WIDE>
 static cudaError_t launch_f32(const Args& a, dim3 grid, cudaStream_t s) {
   static bool raised[64];
-  return launch<F32_SMEM>(&flash_fwd_f32<SEG>, raised, a, grid, F32_THREADS,
-                          s);
+  return launch<WIDE ? F32_WIDE_SMEM : F32_SMEM>(
+      &flash_fwd_f32<SEG, WIDE>, raised, a, grid, F32_THREADS, s);
 }
 
 // C interface bound with ctypes by tpu_ac_torch/kernels/attention.py.
-// q, k, v, o: [B, H, S, 64] of bf16 (is_bf16 != 0) or f32, addressed by the
-// 12 element strides in `strides` (q, k, v, o, each as batch, head,
-// sequence; the last dim is contiguous, every row 16-byte aligned).  seg:
-// int32 [S] segment ids on the device, or null.  Launches on `stream`, does
-// not synchronize, returns cudaGetLastError().
+// q, k: [B, H, S, 64 * n_chunks], v, o: [B, H, S, 64] (the wrapper's slice
+// of a wider V and O), of bf16 (is_bf16 != 0) or f32, addressed by the 12
+// element strides in `strides` (q, k, v, o, each as batch, head, sequence;
+// the last dim is contiguous, every row 16-byte aligned).  seg: int32 [S]
+// segment ids on the device, or null.  Launches on `stream`, does not
+// synchronize, returns cudaGetLastError().
 extern "C" int tpu_ac_flash_attention(const void* q, const void* k,
                                       const void* v, void* o, const int* seg,
                                       const long long* strides, int B, int H,
                                       int S, float scale, int is_bf16,
-                                      void* stream) {
+                                      int n_chunks, void* stream) {
+  if (n_chunks < 1) return (int)cudaErrorInvalidValue;
   if (B <= 0 || H <= 0 || S <= 0) return (int)cudaSuccess;
   Args a;
   a.q = q;
@@ -734,14 +789,22 @@ extern "C" int tpu_ac_flash_attention(const void* q, const void* k,
   a.sv = Strides{strides[6], strides[7], strides[8]};
   a.so = Strides{strides[9], strides[10], strides[11]};
   a.S = S;
+  a.nc = n_chunks;
   a.c = scale * LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wide = n_chunks > 1;
   if (!is_bf16) {
     const dim3 grid((S + F32_BQ - 1) / F32_BQ, H, B);
-    return (int)(seg ? launch_f32<true>(a, grid, s)
-                     : launch_f32<false>(a, grid, s));
+    if (wide)
+      return (int)(seg ? launch_f32<true, true>(a, grid, s)
+                       : launch_f32<false, true>(a, grid, s));
+    return (int)(seg ? launch_f32<true, false>(a, grid, s)
+                     : launch_f32<false, false>(a, grid, s));
   }
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  return (int)(seg ? launch_bf16<true>(a, grid, s)
-                   : launch_bf16<false>(a, grid, s));
+  if (wide)
+    return (int)(seg ? launch_bf16<true, true>(a, grid, s)
+                     : launch_bf16<false, true>(a, grid, s));
+  return (int)(seg ? launch_bf16<true, false>(a, grid, s)
+                   : launch_bf16<false, false>(a, grid, s));
 }

@@ -41,14 +41,18 @@ def to_device(device: str | torch.device):
     ``jax.device_put``).  The copy is queued on the current stream of the
     calling thread, the default stream, so the step that receives the
     tensor reads it after it has landed; torch's pinned-memory allocator
-    keeps the host buffer until then."""
+    keeps the host buffer until then.  The calling thread makes
+    ``device``'s card current for the copy: a loader thread's current
+    card is card 0, whose context a rank on another card would otherwise
+    create to pin the buffer."""
     dev = torch.device(device)
 
     def transfer(a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(a)
         if dev.type == "cpu":
             return t
-        return t.pin_memory().to(dev, non_blocking=True)
+        with torch.cuda.device(dev):
+            return t.pin_memory().to(dev, non_blocking=True)
 
     return transfer
 
@@ -254,7 +258,11 @@ def _stop_servers() -> None:
     if server._forkserver_pid is not None:
         os.kill(server._forkserver_pid, signal.SIGTERM)
     server._stop()
-    resource_tracker._resource_tracker._stop()
+    tracker = resource_tracker._resource_tracker
+    # a spawned process holds only its parent's tracker's pipe (no pid):
+    # the parent stops that tracker
+    if tracker._pid is not None:
+        tracker._stop()
 
 
 def _augment_chunk(aug: Callable, arrays: Sequence[np.ndarray],

@@ -20,7 +20,11 @@ PRECISIONS = ("default", "highest", "bfloat16")
 
 def resolve_device(name: str | torch.device = "cuda") -> torch.device:
     """``"cuda"``/``"cuda:N"``/``"cpu"`` -> torch.device; raises when CUDA
-    is asked for and absent."""
+    is asked for and absent.  A bare ``"cuda"`` becomes the calling
+    thread's current card, with its index: the current card is a
+    thread's, so a loader thread would put a bare ``"cuda"`` on card 0
+    where a rank of a process group (``distributed.multihost_init``) has
+    made another card current."""
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -28,6 +32,8 @@ def resolve_device(name: str | torch.device = "cuda") -> torch.device:
             "pass device='cpu' (CLI: --device cpu) to run on the host")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"device {str(name)!r}; want 'cuda' or 'cpu'")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

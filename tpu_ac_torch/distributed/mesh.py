@@ -14,15 +14,18 @@ the partials a sum of tensors.  A ``Mesh`` is an ordered list of
 ``torch.device``s and may hold the same device more than once, so dp >= 2
 runs on one card (its ranks one after another, each at the shape it has on
 a real mesh) or on the CPU.  A sharded array is a plain list of
-per-position shards.  ``torch.distributed`` across processes and hosts is
-not carried (``tpu_ac``'s ``multihost_init``); the requeue launcher is
-``distributed/launch.py``.
+per-position shards.  Training across processes runs on
+``torch.distributed`` (``multihost_init``, ``collectives.py``); the requeue
+launcher is ``distributed/launch.py``.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from tpu_ac_torch.kernels.distances import (
@@ -69,6 +72,73 @@ def get_mesh(n_devices: int | None = None, axis_name: str = "dp") -> Mesh:
             f"virtual mesh of a repeated device: Mesh(['cuda:0'] * {n}) or "
             f"Mesh(['cpu'] * {n}))")
     return Mesh([f"cuda:{i}" for i in range(n)], axis_name)
+
+
+# the cluster environments a bare multihost_init call joins: torchrun's
+# and SLURM's (tpu_ac reads JAX's coordinator and the TPU pod's instead)
+CLUSTER_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "SLURM_JOB_NUM_NODES")
+
+
+def multihost_init(coordinator_address: str | None = None,
+                   num_processes: int | None = None,
+                   process_id: int | None = None,
+                   backend: str | None = None) -> None:
+    """Join a ``torch.distributed`` group of processes, the reference's
+    init_distributed_mode (dino-main/utils.py:467-499), with ``tpu_ac``'s
+    no-op rules: ``num_processes <= 1`` does nothing, and so does a bare
+    call outside a cluster environment (torchrun's RANK/WORLD_SIZE/
+    MASTER_ADDR, SLURM's job).
+
+    ``coordinator_address`` ("host:port", rank 0's) becomes a ``tcp://``
+    init method; without it the group reads torchrun's MASTER_ADDR and
+    MASTER_PORT.  The world size and rank come from the arguments, else
+    from WORLD_SIZE/RANK (SLURM_NTASKS/SLURM_PROCID).  Where CUDA is
+    present, the rank's card is cuda:LOCAL_RANK (SLURM_LOCALID; 0 when
+    neither is set), made the current device.
+
+    The backend is chosen once, before the init, and never changed after a
+    failure (a failed init raises): ``nccl`` where CUDA is present (a card
+    a rank), ``gloo`` without it, or ``backend`` as given.  Ranks that
+    share one card pass ``backend="gloo"``, since NCCL refuses two ranks on
+    one GPU; gloo reduces CUDA tensors only by all_reduce and broadcast,
+    which is all ``collectives.py`` uses.
+    """
+    env = os.environ
+    if num_processes is not None and num_processes <= 1:
+        return
+    if (coordinator_address is None and num_processes is None
+            and process_id is None
+            and not any(env.get(v) for v in CLUSTER_ENV)):
+        return
+    world = (num_processes if num_processes is not None
+             else int(env.get("WORLD_SIZE") or env.get("SLURM_NTASKS")
+                      or 1))
+    if world <= 1:
+        return
+    rank = (process_id if process_id is not None
+            else int(env.get("RANK") or env.get("SLURM_PROCID") or 0))
+    cuda = torch.cuda.is_available()
+    if backend is None:
+        backend = "nccl" if cuda else "gloo"
+    if cuda:
+        torch.cuda.set_device(int(env.get("LOCAL_RANK")
+                                  or env.get("SLURM_LOCALID") or 0))
+    init = (f"tcp://{coordinator_address}" if coordinator_address
+            else "env://")
+    dist.init_process_group(backend, init_method=init, world_size=world,
+                            rank=rank)
+
+
+def process_count() -> int:
+    """The number of processes of the default group (1 without one)."""
+    return (dist.get_world_size() if dist.is_available()
+            and dist.is_initialized() else 1)
+
+
+def process_index() -> int:
+    """This process's rank in the default group (0 without one)."""
+    return (dist.get_rank() if dist.is_available() and dist.is_initialized()
+            else 0)
 
 
 def dp_mesh(dp: int, batch_size: int | None = None,

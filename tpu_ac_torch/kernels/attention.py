@@ -13,11 +13,13 @@ bias raises ``NotImplementedError``, as in ``tpu_ac``.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs
 ``flash_attention_plain``.  The kernel takes any S (the ragged tail is
-masked in the kernel, not padded) and head dim 64: a smaller head dim is
-zero-padded to 64 (``pad_head_dim``, as ``tpu_ac`` pads to 128 lanes; zero
+masked in the kernel, not padded) and any head dim: Dh is zero-padded to a
+multiple of 64 (``pad_head_dim``, as ``tpu_ac`` pads to 128 lanes; zero
 columns change neither QK^T nor the kept columns of the output) and the
-output sliced back, a larger one raises.  bf16 runs on the tensor cores in
-bf16, f32 in 3xTF32 (f32 accuracy).  It reads q, k, v
+output sliced back.  Over 64, q and k go in whole (the kernel sums QK^T
+over their 64-column chunks) and the wrapper launches once per 64-column
+slice of V and the output (``flash_by_slices``).  bf16 runs on the tensor
+cores in bf16, f32 in 3xTF32 (f32 accuracy).  It reads q, k, v
 through their strides, so the strided views of a packed qkv projection go in
 without a copy; what it cannot address (a last dim that is not contiguous,
 rows not 16-byte aligned) raises instead of being copied.  The output is
@@ -37,7 +39,7 @@ import torch
 LAUNCHES = 0
 LAUNCHES_F32 = 0
 
-HEAD_DIM = 64  # the kernel's head dim (every dino_vit* name)
+HEAD_DIM = 64  # the kernel's head-dim chunk (every dino_vit* name's Dh)
 _DTYPES = (torch.bfloat16, torch.float32)
 _STRIDES = ctypes.c_longlong * 12
 
@@ -128,7 +130,7 @@ def _kernel_fn():
         fn = library("flash_attention").tpu_ac_flash_attention
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_float,
-                       ci, vp]
+                       ci, ci, vp]
         fn.restype = ci
         _FN = fn
     return _FN
@@ -148,41 +150,49 @@ def _check_layout(name: str, t: torch.Tensor) -> None:
 
 
 def pad_head_dim(t: torch.Tensor) -> torch.Tensor:
-    """[..., Dh] -> [..., HEAD_DIM] with zero columns (Dh <= HEAD_DIM)."""
-    return torch.nn.functional.pad(t, (0, HEAD_DIM - t.shape[-1]))
+    """[..., Dh] -> [..., Dh rounded up to a multiple of HEAD_DIM] with zero
+    columns (``t`` itself where Dh is a multiple already)."""
+    pad = -t.shape[-1] % HEAD_DIM
+    return torch.nn.functional.pad(t, (0, pad)) if pad else t
 
 
-def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                scale: float, ids: torch.Tensor | None) -> torch.Tensor:
-    global LAUNCHES, LAUNCHES_F32
+def flash_by_slices(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    launch) -> torch.Tensor:
+    """The kernel's head-dim plan: q, k, v zero-padded to a multiple of
+    HEAD_DIM, ``launch(q, k, v_j, out_j)`` once for each HEAD_DIM-column
+    slice j of V and of the output, which it fills; returns the output
+    [B, H, S, Dh], laid out as [B, S, H, Dh'] (Dh' the padded width) in
+    memory, sliced back to Dh."""
     b, h, s, d = q.shape
-    if d > HEAD_DIM:
-        raise ValueError(
-            f"the flash kernel takes head dims up to {HEAD_DIM}, got {d}: "
-            "larger head dims are ROADMAP.md Queue 2 item 5")
-    if d < HEAD_DIM:
-        out = _flash_cuda(pad_head_dim(q), pad_head_dim(k), pad_head_dim(v),
-                          scale, ids)
-        return out[..., :d]
-    if not scale > 0:
-        raise ValueError(
-            f"the flash kernel takes a positive scale, got {scale}")
-    if b > 65535 or h > 65535:
-        raise ValueError(f"B={b}, H={h}: each must be <= 65535 (grid)")
+    q, k, v = pad_head_dim(q), pad_head_dim(k), pad_head_dim(v)
+    dp = q.shape[-1]
+    out = torch.empty_strided((b, h, s, dp), (s * h * dp, dp, h * dp, 1),
+                              dtype=q.dtype, device=q.device)
+    if dp == HEAD_DIM:  # one launch on the tensors themselves
+        launch(q, k, v, out)
+    else:
+        for j in range(0, dp, HEAD_DIM):
+            launch(q, k, v[..., j:j + HEAD_DIM], out[..., j:j + HEAD_DIM])
+    return out if dp == d else out[..., :d]
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            out: torch.Tensor, scale: float, ids: torch.Tensor | None
+            ) -> None:
+    """One kernel launch: q, k [B, H, S, 64 n] and the 64-column slices v,
+    out [B, H, S, 64]."""
+    global LAUNCHES, LAUNCHES_F32
+    b, h, s, _ = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_layout(name, t)
-    dev = q.device
-    if ids is not None:
-        ids = ids.to(device=dev, dtype=torch.int32).contiguous()
-    # [B, S, H, Dh] storage, returned as the [B, H, S, Dh] view
-    out = torch.empty_strided((b, h, s, d), (s * h * d, d, h * d, 1),
-                              dtype=q.dtype, device=dev)
     strides = _STRIDES(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                       s * h * d, d, h * d)
+                       *out.stride()[:3])
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if ids is None else ids.data_ptr(), strides, b, h, s,
-            float(scale), int(q.dtype == torch.bfloat16))
+            float(scale), int(q.dtype == torch.bfloat16),
+            q.shape[-1] // HEAD_DIM)
     fn = _kernel_fn()
+    dev = q.device
     if dev.index == torch.cuda.current_device():
         rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     else:
@@ -193,7 +203,20 @@ def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"flash_attention kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
     LAUNCHES_F32 += q.dtype == torch.float32
-    return out
+
+
+def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                scale: float, ids: torch.Tensor | None) -> torch.Tensor:
+    b, h, _, _ = q.shape
+    if not scale > 0:
+        raise ValueError(
+            f"the flash kernel takes a positive scale, got {scale}")
+    if b > 65535 or h > 65535:
+        raise ValueError(f"B={b}, H={h}: each must be <= 65535 (grid)")
+    if ids is not None:
+        ids = ids.to(device=q.device, dtype=torch.int32).contiguous()
+    return flash_by_slices(
+        q, k, v, lambda q, k, v, out: _launch(q, k, v, out, scale, ids))
 
 
 def flash_attention_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -19,7 +19,11 @@ beside the features, the functional form ``tpu_ac`` has.  BatchNorm is
 torch's (``F.batch_norm``), which ``tpu_ac``'s ``_bn`` mirrors: the biased
 batch variance normalizes, the unbiased one moves the running variance,
 momentum 0.1, eps 1e-5; train mode updates the statistics, eval mode reads
-them.
+them.  In a ``torch.distributed`` group of more than one process, train
+mode takes the statistics over the global batch (sync-BN, what ``tpu_ac``'s
+jit over the sharded batch computes): the per-channel sum, sum of squares
+and count all-reduced in one bucket, and in the backward the sums of the
+gradient (``_GlobalBatchNorm``).
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tpu_ac_torch.distributed import collectives
 
 Params = Mapping[str, torch.Tensor]
 
@@ -137,9 +143,72 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # train mode updates the running buffers in place
+        if self.training and collectives.process_count() > 1:
+            return self._global_batch_norm(x)
         return F.batch_norm(x, self.running_mean, self.running_var,
                             self.weight, self.bias, self.training,
                             self.momentum, self.eps)
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over every rank's batch: normalized by the biased
+        global variance, the running variance moved by the unbiased one, as
+        F.batch_norm does on one batch."""
+        y, mean, var, n = _GlobalBatchNorm.apply(x, self.weight, self.bias,
+                                                 self.eps)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(mean * m)
+            self.running_var.mul_(1 - m).add_(var * (n / (n - 1)) * m)
+        return y
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """y = x_hat w + b with x_hat = (x - mean) / sqrt(var + eps), the
+    statistics over the global batch: each rank's per-channel sum, sum of
+    squares and count all-reduced in one bucket.  The backward is the
+    analytic one of F.batch_norm (and of torch's SyncBatchNorm) over the
+    global batch: the per-channel sums of dy and dy x_hat all-reduced in
+    one bucket, dx = w / std (dy - mean(dy) - x_hat mean(dy x_hat)); w and
+    b get this rank's sums, which the step averages over the ranks.
+
+    The per-channel sums accumulate in float64: the variance as E[x^2] -
+    E[x]^2 subtracts two terms that are large wherever a channel's mean is
+    large against its spread (after a ReLU), which f32 sums would lose.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        c = x.shape[1]
+        f64 = torch.float64
+        stats = collectives.all_reduce_sum(torch.cat([
+            x.sum(dim=(0, 2, 3), dtype=f64),
+            (x * x).sum(dim=(0, 2, 3), dtype=f64),
+            x.new_full((1,), x.numel() // c, dtype=f64)]))
+        n = stats[2 * c]
+        mean64 = stats[:c] / n
+        var64 = stats[c:2 * c] / n - mean64.square()
+        mean, var = mean64.to(x.dtype), var64.to(x.dtype)
+        invstd = torch.rsqrt(var64 + eps).to(x.dtype)
+        x_hat = (x - mean[None, :, None, None]) * invstd[None, :, None, None]
+        ctx.save_for_backward(x_hat, weight, invstd, n)
+        ctx.mark_non_differentiable(mean, var, n)
+        return (x_hat * weight[None, :, None, None]
+                + bias[None, :, None, None], mean, var, n.to(x.dtype))
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var, _n):
+        x_hat, weight, invstd, n = ctx.saved_tensors
+        c = dy.shape[1]
+        f64 = torch.float64
+        sum_dy = dy.sum(dim=(0, 2, 3), dtype=f64)
+        sum_dy_xhat = (dy * x_hat).sum(dim=(0, 2, 3), dtype=f64)
+        g = collectives.all_reduce_sum(torch.cat([sum_dy, sum_dy_xhat]))
+        mean_dy = (g[:c] / n).to(dy.dtype)
+        mean_dy_xhat = (g[c:] / n).to(dy.dtype)
+        dx = (dy - mean_dy[None, :, None, None]
+              - x_hat * mean_dy_xhat[None, :, None, None]) \
+            * (weight * invstd)[None, :, None, None]
+        return dx, sum_dy_xhat.to(dy.dtype), sum_dy.to(dy.dtype), None
 
 
 def _conv(in_c: int, out_c: int, k: int, stride: int = 1) -> nn.Conv2d:

@@ -32,6 +32,16 @@ no weights: each forward binds the state's tensors to it
 recomputes its blocks.  ``tpu_ac``'s ``scan_blocks`` (a ``lax.scan`` over
 the blocks, which cuts XLA's compile time) has no meaning in eager torch
 and is dropped.
+
+Across processes (a ``torch.distributed`` group, ``distributed.
+multihost_init``) each rank holds its shard of the batch, and the step is
+the reference's over the global batch (main_dino.py:406-416, DDP plus the
+center's all_reduce): the gradients are averaged over the ranks before the
+clip, and the center's batch mean is the all-reduced sum of the teacher's
+outputs over the global count.  Each rank's loss is its shard's mean, as
+the reference logs it; every rank ends the step with the same state, bit
+for bit.  ``tpu_ac``'s multi-process CLI trains one replica a process
+instead (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ from torch import nn
 
 from tpu_ac_torch.data.mvtec import normalize_on_device
 from tpu_ac_torch.device import resolve_device
+from tpu_ac_torch.distributed import collectives
 from tpu_ac_torch.models.dino_head import DINOHead, init_dino_head_params
 from tpu_ac_torch.models.vit import ViT, ViTConfig, init_vit_params
 from tpu_ac_torch.train.optim import AdamState, scale_by_adam
@@ -382,8 +393,8 @@ def dino_update(state: DINOTrainState, grads: Params,
     torch._foreach_add_(teacher, torch._foreach_mul(
         [student[k] for k in t_names], 1.0 - teacher_momentum))
 
-    # center EMA over the teacher's outputs of this batch
-    batch_center = torch.mean(t_out, dim=0, keepdim=True)
+    # center EMA over the teacher's outputs of the (global) batch
+    batch_center = collectives.global_mean(t_out, dim=0)[None]
     center = (state.center * cfg.center_momentum +
               batch_center * (1.0 - cfg.center_momentum))
     return DINOTrainState(
@@ -429,6 +440,8 @@ def make_dino_train_step(vit_cfg: ViTConfig, cfg: DINOConfig,
         loss, t_out, grads = dino_loss_and_grads(
             model, state, global_crops, local_crops, teacher_temp, cfg,
             compute_dtype)
+        # DDP's average over the ranks, before the clip (one bucket)
+        grads = collectives.all_reduce_dict(grads, "mean")
         new_state = dino_update(state, grads, t_out, lr, wd,
                                 teacher_momentum, freeze_last, cfg)
         return new_state, {"loss": loss, "lr": lr, "wd": wd}

@@ -22,6 +22,16 @@ a new state and leaves its argument as it was.  BatchNorm threads through
 every forward explicitly: the SCAN step runs anchors and neighbours as two
 forwards, the second starting from the statistics the first left.
 
+Across processes (``train_dp: N`` over N cards, a ``torch.distributed``
+group) each rank holds its shard of the batch and every loss is the one of
+the global batch, as ``tpu_ac``'s jit over the sharded batch computes it:
+BatchNorm's statistics (``models/resnet_cifar.py``), SimCLR's negatives
+(every rank's features, gathered with their gradient), SCAN's entropy of
+the mean prediction and self-labeling's class counts and weights span the
+ranks; each rank's loss is written so that the global loss is the ranks'
+mean, the gradients are averaged over the ranks before the optimizer (one
+bucket with the loss), and every rank ends the step with the same state.
+
 Steps run at the caller's precision: ``cli/scan.py`` runs them under
 ``device.precision_scope("default")``, where cuBLAS and cuDNN may use TF32
 (the card's analogue of the TPU's single-pass f32); the card-vs-CPU checks
@@ -40,6 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpu_ac_torch.device import resolve_device
+from tpu_ac_torch.distributed import collectives
 from tpu_ac_torch.models.resnet_cifar import (
     CifarResNet,
     CifarResNetConfig,
@@ -66,16 +77,22 @@ EPS = 1e-8
 
 def simclr_loss(features: torch.Tensor, temperature: float) -> torch.Tensor:
     """SimCLR NT-Xent on [B, 2, dim] normalized features
-    (losses/losses.py:124-165, SupContrast formulation)."""
+    (losses/losses.py:124-165, SupContrast formulation).  Across ranks the
+    anchors are this rank's and the contrast set is every rank's (the
+    global batch in rank order); the mean is over this rank's anchors."""
     b, n, _dim = features.shape
     if n != 2:
         raise ValueError(f"simclr_loss wants [B, 2, dim], got {n} views")
-    contrast = torch.cat([features[:, 0], features[:, 1]], dim=0)
+    contrast = torch.cat([collectives.all_gather(features[:, 0]),
+                          collectives.all_gather(features[:, 1])], dim=0)
     anchor = features[:, 0]
     logits = anchor @ contrast.T / temperature
     logits = logits - torch.amax(logits, dim=1, keepdim=True).detach()
-    # mask out self-contrast (anchor i vs contrast i)
-    eye = torch.eye(b, dtype=features.dtype, device=features.device)
+    # mask out self-contrast (anchor i vs contrast i, global rows)
+    dev = features.device
+    rows = collectives.process_index() * b + torch.arange(b, device=dev)
+    cols = torch.arange(contrast.shape[0] // 2, device=dev)
+    eye = (rows[:, None] == cols[None, :]).to(features.dtype)
     zeros = torch.zeros_like(eye)
     logits_mask = 1.0 - torch.cat([eye, zeros], dim=1)
     pos_mask = torch.cat([zeros, eye], dim=1)
@@ -108,7 +125,8 @@ def scan_loss(anchor_logits: torch.Tensor, neighbor_logits: torch.Tensor,
     similarity = torch.sum(a * pos, dim=-1)
     consistency = -torch.mean(torch.log(torch.clamp(similarity, min=EPS)),
                               dim=-1)
-    x = torch.clamp(torch.mean(a, dim=-2), min=EPS)
+    # the entropy of the global batch's mean prediction
+    x = torch.clamp(collectives.global_mean(a, dim=-2), min=EPS)
     ent = -torch.sum(x * torch.log(x), dim=-1)
     return consistency - entropy_weight * ent, consistency, ent
 
@@ -121,18 +139,23 @@ def confidence_based_ce(weak_logits: torch.Tensor,
     confident weak-augmentation predictions, CE on strong augmentations,
     optional inverse-frequency class weights.  Masked arithmetic in place
     of the reference's boolean indexing, as ``tpu_ac`` has it (no
-    data-dependent shape, so no host round trip on the card)."""
+    data-dependent shape, so no host round trip on the card).  Across
+    ranks the confident count, the class counts and the weights' sum are
+    the global batch's, and each rank's loss is its share of the global
+    sum over the global weights' mean over ranks, so that the global loss
+    is the ranks' mean."""
     weak_logits = weak_logits.detach()
     probs = torch.softmax(weak_logits, dim=1)
     max_prob = torch.amax(probs, dim=1)
     target = torch.argmax(probs, dim=1)
     mask = (max_prob > threshold).to(weak_logits.dtype)
-    n = torch.sum(mask)
+    n = collectives.all_reduce_sum(torch.sum(mask))
     c = weak_logits.shape[1]
 
     onehot = F.one_hot(target, c).to(weak_logits.dtype)
     if apply_class_balancing:
-        counts = torch.sum(onehot * mask[:, None], dim=0)  # [c]
+        counts = collectives.all_reduce_sum(
+            torch.sum(onehot * mask[:, None], dim=0))  # [c]
         freq = torch.where(counts > 0, n / torch.clamp(counts, min=1.0),
                            torch.ones_like(counts))
         sample_w = freq[target]
@@ -142,7 +165,11 @@ def confidence_based_ce(weak_logits: torch.Tensor,
     logp = torch.log_softmax(strong_logits, dim=1)
     per_sample = -torch.sum(onehot * logp, dim=1) * sample_w * mask
     # torch cross_entropy(weight=...) 'mean' divides by the sum of weights
-    denom = torch.clamp(torch.sum(sample_w * mask), min=EPS)
+    denom = torch.clamp(collectives.all_reduce_sum(
+        torch.sum(sample_w * mask)), min=EPS)
+    w = collectives.process_count()
+    if w > 1:
+        denom = denom / w
     return torch.sum(per_sample) / denom
 
 
@@ -416,7 +443,10 @@ def _grads(loss_fn, params: dict, trainable=None):
             loss, [leaves[k] for k in names])))
     grads = {k: grads[k] if k in grads else torch.zeros_like(v)
              for k, v in params.items()}
-    return loss.detach(), aux, grads
+    # across ranks: the gradients' and the loss's mean, in one bucket (""
+    # names no parameter)
+    reduced = collectives.all_reduce_dict({"": loss.detach(), **grads})
+    return reduced[""], aux, {k: reduced[k] for k in grads}
 
 
 def simclr_loss_and_grads(state: SCANTrainState, images_i, images_j,
@@ -458,8 +488,11 @@ def scan_loss_and_grads(state: SCANTrainState, anchors, neighbors,
         totals = scan_loss(a_logits, n_logits, entropy_weight)[0]  # [H]
         return torch.sum(totals), (bn2, totals.detach())
 
-    return _grads(loss_fn, state.params,
-                  _is_head if update_cluster_head_only else None)
+    loss, (bn2, totals), grads = _grads(
+        loss_fn, state.params, _is_head if update_cluster_head_only else None)
+    # each head's loss over the global batch: the mean over ranks
+    totals = collectives.all_reduce_dict({"": totals})[""]
+    return loss, (bn2, totals), grads
 
 
 def selflabel_loss_and_grads(state: SCANTrainState, images_weak,
@@ -556,32 +589,46 @@ def make_selflabel_step(cfg: SCANModelConfig, optimizer,
 
 
 def dp_shard_step(step_fn, mesh, n_batch_args: int):
-    """The data-parallel step of ``tpu_ac`` (its ``dp_shard_step``) on a
-    mesh whose positions are all one device.
+    """The data-parallel step of ``tpu_ac`` (its ``dp_shard_step``).
 
     ``tpu_ac`` jits the unsharded step with the batch sharded over the
     mesh: its batch statistics, losses and gradient sums run over the
     WHOLE batch (sync-BN), so the sharded step equals the unsharded one.
-    On a virtual mesh (one card, or the CPU, repeated: ``distributed/
-    mesh.py``) the port therefore runs the step on the whole batch, after
-    the same divisibility check.  A mesh of distinct cards needs DDP with
-    SyncBatchNorm across processes, which is not ported (ROADMAP Queue 1
-    item 14)."""
-    devices = mesh.distinct_devices
-    if len(devices) > 1:
-        raise NotImplementedError(
-            f"train_dp over {len(devices)} distinct devices needs "
-            "torch.distributed (DDP with SyncBatchNorm), ROADMAP Queue 1 "
-            "item 14; a mesh that repeats one device runs the step on the "
-            "whole batch")
-    dev = devices[0]
+
+    - In a ``torch.distributed`` group of the mesh's size (one process a
+      rank: torchrun, ``cli/scan.py``'s spawn, or ranks that share a card
+      over gloo), each rank runs the step on its own shard of the batch
+      on its mesh position's device, and the step's collectives make it
+      the global batch's (see the module's docstring).
+    - Without a group, on a mesh whose positions are all one device (one
+      card, or the CPU, repeated: ``distributed/mesh.py``), the step runs
+      on the whole batch, after the same divisibility check.
+    - A mesh of distinct cards without a group raises: it needs one
+      process a card."""
+    w = collectives.process_count()
+    if w > 1:
+        if mesh.size != w:
+            raise ValueError(
+                f"a {mesh.size}-way train_dp mesh in a group of {w} "
+                "processes: they must be equal")
+        dev = mesh.devices[collectives.process_index()]
+    else:
+        devices = mesh.distinct_devices
+        if len(devices) > 1:
+            raise RuntimeError(
+                f"train_dp over {len(devices)} distinct devices runs one "
+                "process a device: run under torchrun or through "
+                "tpu_ac_torch.cli.scan (which starts the ranks), or join a "
+                "group with distributed.multihost_init first")
+        dev = devices[0]
 
     def step(state, *args):
-        for a in args[:n_batch_args]:
-            if a.shape[0] % mesh.size:
-                raise ValueError(
-                    f"batch of {a.shape[0]} not divisible by the "
-                    f"{mesh.size}-way data-parallel axis (train_dp)")
+        if w == 1:
+            for a in args[:n_batch_args]:
+                if a.shape[0] % mesh.size:
+                    raise ValueError(
+                        f"batch of {a.shape[0]} not divisible by the "
+                        f"{mesh.size}-way data-parallel axis (train_dp)")
         args = (tuple(a.to(dev) for a in args[:n_batch_args])
                 + args[n_batch_args:])
         return step_fn(state, *args)
