@@ -4,6 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --scaling N   # on a host of N cards, see
                                         # phase_scaling
+    python3 chip_smoke.py --flash_ab DIR  # the flash kernels against
+                                          # another checkout's, see flash_ab
 
 Phases, each fatal on failure:
   1. card: name and power limit (nvidia-smi), torch/CUDA versions;
@@ -19,8 +21,9 @@ Phases, each fatal on failure:
      packed qkv, at the main path's [8, 12, 785, 64], at S = 1, 17, 26,
      127, 128, 129, 130 (the cp.async tiles' edges), at S=256 with a
      segment mask over the last 56 keys, at head dims 16, 32, 48
-     (zero-padded to 64) and 80, 128, 200 (padded to a multiple of 64,
-     one launch per 64-column slice of V; at S = 785 and with the mask);
+     (zero-padded to 64) and, through the wide kernels, 80, 128, 200, 256
+     (one launch a call) and 320 (one per 256-column slice of V), each at
+     S = 785 and with the mask, the launches a call asserted;
   4. main path: a synthetic MVTec tree of two categories (84 and 168 test
      images, 256 px sources) through tpu_ac_torch.cli.main with the CLI
      defaults (ViT-B/8 full width on its seeded random init, blocks.10+11,
@@ -41,7 +44,16 @@ Phases, each fatal on failure:
      through an f32 flash embedder (precision="highest", the f32 kernel:
      its 132 launches asserted, all f32) against the dense f32 embedding
      within F32_FLASH_GAP_BOUND; embed ms/image flash vs dense in bf16 and
-     in f32, sweep img/s, and one profiled sweep;
+     in f32, sweep img/s, and one profiled sweep; then a ViT-H/14 at full
+     width (1280 wide, 32 blocks of 16 heads, Dh 80, MLP 5120; seeded on
+     the card) embeds bottle at 224 px through CategoryEmbedder(...,
+     attention_impl="flash") in bf16 (blocks.30+31): the wide kernel held
+     to its plain version at the embed's shapes ([8, 16, 257, 80] and the
+     last batch's [4, 16, 257, 80]), 352 launches of the
+     wide kernel asserted, Z within VITH_GAP_FACTOR x the bf16 rounding
+     noise of the dense embed, compute_alpha_X with its one min_dists
+     launch, alpha/X finite and alpha's rows summing to 1; ms/image flash
+     and dense and the flash kernel's share of the embed;
   6. mesh path: the same tree through run_category_sweep with the CLI
      defaults on a virtual dp mesh of 2 x cuda:0 (one process runs the
      ranks one after another, each at its shape on a real 2-card mesh):
@@ -88,7 +100,7 @@ Phases, each fatal on failure:
      vit_r50, vit_swin_base, dino_xcit_medium_24_p8, vit_deit_distilled),
      each at its full registered width on its seeded init, tapped at two
      layers (~28 x 28 and ~14 x 14 grids at 224 px where the family has
-     them, printed): the card's f32 embedding of 2 images (TF32 off)
+     them, printed): the card's f32 embedding of 1 image (TF32 off)
      against the CPU's within ZOO_GAP_BOUND, then the sweep of bottle
      (84 images) at the CLI defaults with its pickles checked and its
      symmetric min_dists launches counted (the counts set to 0 before
@@ -234,6 +246,19 @@ FLASH_SHAPE = (8, 12, 785, 64)
 # (1e-3).  A single-pass TF32 kernel sits 20-25x over the 1e-5 rule
 # (tests/test_torch_flash_f32.py), a wrong one at O(1).
 F32_FLASH_GAP_BOUND = 12 * 8 * 1e-5
+# ViT-H/14 ("An Image is Worth 16x16 Words", Table 1; timm
+# vit_huge_patch14_224): the flash path's head dim over 64 (1280 / 16 = 80)
+VITH14 = dict(patch_size=14, embed_dim=1280, depth=32, num_heads=16)
+# Its flash embed against the dense one in bf16, relative L2, as for
+# ViT-B/8: two bf16 paths that each round about as much as the dense one
+# does against f32 differ by about sqrt(2) times that; 3x leaves room for
+# the flash kernel's bf16 rounding of P (2^-8 of the attention of |V|, the
+# dense path's rounding of its softmax output is the same size).  The blocks
+# add attention to a residual stream, which damps a kernel's error in Z, so
+# this bound checks the path end to end and not the kernel: the kernel is
+# held element by element to its plain version at the path's own shapes
+# first (phase_vith_flash)
+VITH_GAP_FACTOR = 3.0
 # the SFU's exponentials: 16 per clock per SM, 132 SMs at the 1.98 GHz boost
 EXP_PER_S = 16 * 132 * 1.98e9
 # weights of the checkpoint route: a seed other than the registry's seed-0
@@ -706,13 +731,21 @@ def _packed_qkv(torch, gen, b: int, h: int, s: int, dh: int, dtype):
 # the largest gap over its per-element limit (attention.flash_tolerance)
 # seen by each flash check, by dtype
 FLASH_WORST = {}
-# head dims over 64 (zero-padded to a multiple of 64, one launch per
-# 64-column slice of V): checked at FLASH_SHAPE's B, H, S; timed at the
-# widths of ViT-H/14 (1280 / 16 heads) and of a 768-wide ViT of 6 heads
-WIDE_HEAD_DIMS = (80, 128, 200)
+# head dims over 64, the wide kernels: checked at FLASH_SHAPE's B, H, S
+# (one launch a call up to 256 columns, one per 256-column slice of V
+# above); timed at the widths of ViT-H/14 (1280 / 16 heads) and of a
+# 768-wide ViT of 6 heads
+WIDE_HEAD_DIMS = (80, 128, 200, 256, 320)
 WIDE_TIMING_SHAPES = ((8, 16, 785, 80), (8, 6, 785, 128))
-# {Dh: {dtype: {"max_abs_err", "gap_over_tol"}}} of those checks
+# {Dh: {dtype: {"max_abs_err", "gap_over_tol", "launches_a_call"}}} of
+# those checks
 FLASH_WIDE = {}
+
+
+def _wide_launches(attn, dh: int) -> int:
+    """Launches of one flash call at head dim ``dh`` under the wrapper's
+    plan: one up to WIDE_SLICE columns, one per slice of V above."""
+    return -(-attn.padded_head_dim(dh) // attn.WIDE_SLICE)
 
 
 def _flash_check(torch, attn, q, k, v, bias, label: str) -> float:
@@ -765,12 +798,12 @@ def phase_flash_kernel(torch, attn) -> float:
             q, k, v = _packed_qkv(torch, gen, b, h, 130, dh_small, dtype)
             errs.append(_flash_check(torch, attn, q, k, v, None,
                                      f"[{b}, {h}, 130, {dh_small}]"))
-        # head dims over 64: ceil(Dh / 64) launches a call, each summing
-        # QK^T over every 64-column chunk of q and k
+        # head dims over 64: the wide kernels, S computed once a key tile
+        # over every column of q and k
         name = str(dtype).split(".")[-1]
         for dh_wide in WIDE_HEAD_DIMS:
             q, k, v = _packed_qkv(torch, gen, b, h, s, dh_wide, dtype)
-            before = attn.LAUNCHES
+            before = (attn.LAUNCHES, attn.LAUNCHES_WIDE)
             worst = FLASH_WORST.get(name, 0.0)
             FLASH_WORST[name] = 0.0
             err = _flash_check(torch, attn, q, k, v, None,
@@ -782,12 +815,16 @@ def phase_flash_kernel(torch, attn) -> float:
             err = max(err, _flash_check(
                 torch, attn, q, k, v, bias,
                 f"[{b}, {h}, 256, {dh_wide}] segment mask"))
-            n_launch = attn.LAUNCHES - before
-            if n_launch != 2 * -(-dh_wide // 64):
-                _fatal(f"flash Dh {dh_wide}: {n_launch} launches for two "
-                       f"calls, want {2 * -(-dh_wide // 64)}")
+            n_launch = (attn.LAUNCHES - before[0],
+                        attn.LAUNCHES_WIDE - before[1])
+            want = 2 * _wide_launches(attn, dh_wide)
+            if n_launch != (want, want):
+                _fatal(f"flash Dh {dh_wide}: {n_launch} launches (all, "
+                       f"wide) for two calls, want {want} of the wide "
+                       "kernel")
             FLASH_WIDE.setdefault(dh_wide, {})[name] = {
-                "max_abs_err": err, "gap_over_tol": FLASH_WORST[name]}
+                "max_abs_err": err, "gap_over_tol": FLASH_WORST[name],
+                "launches_a_call": n_launch[0] // 2}
             FLASH_WORST[name] = max(worst, FLASH_WORST[name])
             errs.append(err)
     return max(errs)
@@ -866,10 +903,26 @@ def phase_flash_timing(torch, attn) -> dict:
                 f32_library_ms=f32_library_ms, max_abs_err=err, wide=wide)
 
 
+def _time_launches(fn, count) -> tuple[float, float, float]:
+    """(device ms, host ms) a call of ``fn`` as _time_ms gives them over
+    20 calls after 3, and the launches a call: what ``count()`` rose by
+    over the calls ``fn`` received."""
+    calls = 0
+
+    def call():
+        nonlocal calls
+        calls += 1
+        fn()
+
+    before = count()
+    ms, host_ms = _time_ms(call, reps=20, warmup=3)
+    return ms, host_ms, (count() - before) / calls
+
+
 def _flash_wide_timing(torch, attn, shape) -> dict:
-    """A head dim over 64, bf16 and f32: the kernel (ceil(Dh / 64)
-    launches a call), its plain version and scaled_dot_product_attention
-    beside the bound of the call's own work (Dh, not the padded width)."""
+    """A head dim over 64, bf16 and f32: the wide kernel (its launches a
+    call counted), its plain version and scaled_dot_product_attention
+    beside the bound of the call's own work (Dh, not a padded width)."""
     import torch.nn.functional as F
 
     b, h, s, dh = shape
@@ -883,9 +936,9 @@ def _flash_wide_timing(torch, attn, shape) -> dict:
         name = str(dtype).split(".")[-1]
         err = _flash_check(torch, attn, q, k, v, None,
                            f"[{b}, {h}, {s}, {dh}] (timed inputs)")
-        ms, host_ms = _time_ms(
-            lambda: attn.flash_attention_impl(q, k, v, scale), reps=20,
-            warmup=3)
+        ms, host_ms, launches = _time_launches(
+            lambda: attn.flash_attention_impl(q, k, v, scale),
+            lambda: attn.LAUNCHES_WIDE)
         plain_ms, _ = _time_ms(
             lambda: attn.flash_attention_plain(q, k, v, scale), reps=20,
             warmup=3)
@@ -897,15 +950,16 @@ def _flash_wide_timing(torch, attn, shape) -> dict:
         bound, bound_by = ((t_ops, "operations") if t_ops >= t_bytes
                            else (t_bytes, "bytes"))
         print(f"timing flash {name} [{b}, {h}, {s}, {dh}]: kernel "
-              f"{ms:.4f} ms ({-(-dh // 64)} launches a call; "
-              f"{flops / ms / 1e9:.1f} TFLOP/s of the call's work; its "
-              f"wrapper {host_ms:.4f} ms a call on the host), bound "
+              f"{ms:.4f} ms ({launches:g} launches a call of the wide "
+              f"kernel; {flops / ms / 1e9:.1f} TFLOP/s of the call's work; "
+              f"its wrapper {host_ms:.4f} ms a call on the host), bound "
               f"{bound:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
               f"scaled_dot_product_attention {library_ms:.4f} ms",
               flush=True)
         row[name] = dict(ms=ms, host_ms=host_ms, plain_ms=plain_ms,
                          library_ms=library_ms, bound_ms=bound,
-                         bound_by=bound_by, max_abs_err=err)
+                         bound_by=bound_by, max_abs_err=err,
+                         launches_a_call=launches)
     return row
 
 
@@ -1286,11 +1340,141 @@ def phase_flash_path(torch, dist, attn, work: str, root: str,
     del f32, f32_flash
     busy = _profile_sweep(
         torch, lambda: run_category_sweep(root, cats, cfg, emb), sweep_s[-1])
+    del emb, dense
+    vith = phase_vith_flash(torch, dist, attn, images[small])
     return dict(launches=launches["flash_attention"], embed_ms=embed_ms,
                 sweep_img_s=n_img / sweep_s[-1], busy_pct=busy,
                 convert_s=convert_s, rel_gaps=[gap, noise, flash_f32],
                 alpha_gap=alpha_gap, f32_gap=gap32,
-                f32_launches=launches32[1])
+                f32_launches=launches32[1], vith=vith)
+
+
+def _seeded_vit_on_card(torch, cfg, seed: int):
+    """A ViT of ``cfg`` in f32 on the card, its weights drawn there from
+    ``seed`` with the distributions of models.vit.init_vit_params: normal
+    of std 0.02 for the tokens and the linear weights (the init's bounds
+    of 100 std never cut), 1 / sqrt(3 ps^2) for the patch projection, ones
+    for the norms' weights, zeros for every bias."""
+    from tpu_ac_torch.models.vit import ViT
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.device("cuda"):
+        model = ViT(cfg)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+            elif "norm" in name:
+                p.fill_(1.0)
+            elif name == "patch_embed.proj.weight":
+                p.normal_(0.0, (3 * cfg.patch_size ** 2) ** -0.5,
+                          generator=gen)
+            else:
+                p.normal_(0.0, 0.02, generator=gen)
+    return model
+
+
+def phase_vith_flash(torch, dist, attn, images) -> dict:
+    """ViT-H/14 at full width (Dh 80, the wide kernel) through the
+    pipeline's own entry: ``images`` (bottle's test images) embedded at
+    224 px (257 tokens) by CategoryEmbedder(..., attention_impl="flash")
+    in bf16, then compute_alpha_X; against the dense embed of the same
+    weights in bf16 and in f32."""
+    import copy
+
+    from tpu_ac_torch.device import card_report
+    from tpu_ac_torch.models.vit import ViTConfig
+    from tpu_ac_torch.pipeline import (
+        CategoryEmbedder,
+        PipelineConfig,
+        compute_alpha_X,
+    )
+
+    t_phase = time.perf_counter()
+    vcfg = ViTConfig(**VITH14)
+    model = _seeded_vit_on_card(torch, vcfg, CKPT_SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_phase
+    layers = (f"blocks.{vcfg.depth - 2}", f"blocks.{vcfg.depth - 1}")
+    cfg = PipelineConfig(layers=layers, batch_size=8, precision="bfloat16")
+    cfg32 = PipelineConfig(layers=layers, batch_size=8, precision="highest")
+    n = images.shape[0]
+    # the f32 embedder keeps the f32 weights; the bf16 ones cast a copy
+    dense32 = CategoryEmbedder(model, cfg32, device="cuda")
+    Z32 = dense32(images)
+    del dense32
+    bf16 = copy.deepcopy(model)
+    del model
+    flash = CategoryEmbedder(bf16, cfg, device="cuda", attention_impl="flash")
+    dense = CategoryEmbedder(bf16, cfg, device="cuda")
+    want = vcfg.depth * math.ceil(n / cfg.batch_size)
+    # the wide kernel at the shapes the embed gives it: full batches and the
+    # last, smaller one
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, h = cfg.batch_size, vcfg.num_heads
+    s, dh = vcfg.num_patches + 1, vcfg.embed_dim // h
+    for bb in sorted({b, n % b or b}, reverse=True):
+        q, k, v = _packed_qkv(torch, gen, bb, h, s, dh, torch.bfloat16)
+        _flash_check(torch, attn, q, k, v, None,
+                     f"[{bb}, {h}, {s}, {dh}] (the ViT-H/14 path's shape)")
+    dist.LAUNCHES = attn.LAUNCHES = attn.LAUNCHES_F32 = 0
+    attn.LAUNCHES_WIDE = 0
+    Zf = flash(images)
+    torch.cuda.synchronize()
+    launches = (attn.LAUNCHES, attn.LAUNCHES_WIDE, attn.LAUNCHES_F32)
+    if launches != (want, want, 0):
+        _fatal(f"the ViT-H/14 flash embed launched {launches} flash kernels "
+               f"(all, wide, f32); want {want} of the wide bf16 kernel "
+               f"({vcfg.depth} blocks x {want // vcfg.depth} batches)")
+    Zd = dense(images)
+    gap, noise = _rel_gap(torch, Zf, Zd), _rel_gap(torch, Zd, Z32)
+    if not (Zf.shape == Zd.shape == Z32.shape and bool(
+            torch.isfinite(Zf).all()) and gap <= VITH_GAP_FACTOR * noise):
+        _fatal(f"ViT-H/14 flash vs dense embeddings: shapes "
+               f"{tuple(Zf.shape)}, {tuple(Zd.shape)}, relative L2 "
+               f"{gap:.3e} > {VITH_GAP_FACTOR} x the bf16 rounding noise "
+               f"{noise:.3e}, or non-finite")
+    dist.LAUNCHES = 0
+    alpha, X = compute_alpha_X(Zf, "unsupervised", 1.0, precision="bf16")
+    torch.cuda.synchronize()
+    row_err = float((alpha.sum(1) - 1.0).abs().max())
+    if dist.LAUNCHES != 1 or not (bool(torch.isfinite(alpha).all()) and bool(
+            torch.isfinite(X).all())) or row_err > 1e-4 or tuple(
+            alpha.shape) != tuple(Zf.shape[:2]):
+        _fatal(f"ViT-H/14 alpha/X: {dist.LAUNCHES} min_dists launches "
+               f"(want 1), alpha {tuple(alpha.shape)} rows off 1 by "
+               f"{row_err:.2e}, or non-finite values")
+    embed_ms = {}
+    for tag, e in (("flash", flash), ("dense", dense)):
+        runs = []
+        for _ in range(3):  # the median of 3 (one run varied 2x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e(images)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3 / n)
+        embed_ms[tag] = sorted(runs)[1]
+    # the kernel's share: one call at the embed's shape, timed alone, times
+    # the launches of the embed
+    q, k, v = _packed_qkv(torch, gen, b, h, s, dh, torch.bfloat16)
+    call_ms, _ = _time_ms(lambda: attn.flash_attention_impl(
+        q, k, v, dh ** -0.5), reps=20, warmup=3)
+    share = call_ms * want / (embed_ms["flash"] * n)
+    card = card_report()
+    phase_s = time.perf_counter() - t_phase
+    print(f"ViT-H/14 flash path ({n_params / 1e6:.1f} M parameters seeded "
+          f"on the card in {init_s:.1f} s): bottle, {n} images at "
+          f"224 px, {want} launches of the wide bf16 kernel ([{b}, {h}, "
+          f"{s}, {dh}]), 1 min_dists; embed {embed_ms['flash']:.3f} "
+          f"ms/image flash, {embed_ms['dense']:.3f} dense; the flash kernel "
+          f"{call_ms:.4f} ms a call, {100 * share:.1f}% of the flash embed; "
+          f"relative L2 flash vs dense bf16 {gap:.3e}, dense bf16 vs f32 "
+          f"{noise:.3e} (bound {VITH_GAP_FACTOR} x); alpha rows off 1 by "
+          f"{row_err:.2e}; {phase_s:.1f} s; card {card['line']}",
+          flush=True)
+    return dict(launches=want, embed_ms=embed_ms, kernel_ms=call_ms,
+                kernel_share=share, rel_gaps=[gap, noise], phase_s=phase_s)
 
 
 def _d_bound(torch, mins, Z, bank):
@@ -2005,7 +2189,7 @@ def _zoo_cli(work: str, root: str) -> dict:
 
 def phase_zoo(torch, dist, attn, work: str, root: str) -> dict:
     """Each ZOO name at full width on its seeded init: the card's f32
-    embedding of 2 images against the CPU's, then the clustering sweep of
+    embedding of 1 image against the CPU's, then the clustering sweep of
     the 84-image bottle category at the CLI defaults (bf16, batch 8,
     unsupervised, tau 1, 2048 -> 4096) with its pickles checked and its
     symmetric min_dists launches counted, embed ms/image, sweep img/s and
@@ -2030,7 +2214,9 @@ def phase_zoo(torch, dist, attn, work: str, root: str) -> dict:
 
     images = MVTecDataset(root, classname="bottle",
                           split=DatasetSplit.TEST).load_all_images()
-    x_cpu = normalize_on_device(torch.from_numpy(images[:2]))
+    # one image: the CPU's f32 forward of a full-width trunk is the
+    # phase's slowest part, and the script has a time limit
+    x_cpu = normalize_on_device(torch.from_numpy(images[:1]))
     out = os.path.join(work, "zoo")
     rows = {}
     for name, taps in ZOO:
@@ -2457,7 +2643,13 @@ SCAN_MOCO_SEED = 1  # not the CLI's init seed: a failed load cannot pass
 # SCAN_LOSS_GAP_BOUND, SCAN_GRAD_GAP_BOUND, SCAN_GLOBAL_GRAD_BOUND and
 # SCAN_BN_GAP_BOUND of its norm where the CPU's gap is smaller (the CPU
 # sums BatchNorm's batch reductions in float64, the card's cuDNN in
-# f32).  The per-parameter floor is
+# f32).  SCAN's loss is a sum over 10 heads of consistency - w entropy,
+# terms near 4.6 that cancel to near 0 (-0.25 in one run, 0.0114 in
+# another), so its floor is SCAN_LOSS_GAP_BOUND of the terms' magnitude,
+# sum over heads of |consistency| + w |entropy| in float64, and not of
+# the loss: on an H100 the card's f32 loss sat 1.07e-6 from float64,
+# 9.4e-5 of a loss of 0.0114, which a floor of 1e-5 of the loss failed.
+# The per-parameter floor is
 # 1e-2: a BN parameter's gradient is a sum over the batch and the pixels
 # (64 x 4 x 4 terms at layer4, 64 x 32 x 32 at layer1) that nearly
 # cancels, and on an H100 the card's f32 sums sat up to 4.3e-3 from
@@ -2795,10 +2987,25 @@ def _scan_card_vs_cpu(torch, ds, cfg) -> dict:
     def norm(x) -> float:
         return float(torch.linalg.vector_norm(x.detach().cpu().double()))
 
-    def held(card, cpu, ref, floor) -> float:
-        """The card's gap to float64 over its bound (<= 1 passes)."""
-        bound = max(2 * norm(cpu - ref), floor * norm(ref), 1e-30)
+    def held(card, cpu, ref, floor, scale=None) -> float:
+        """The card's gap to float64 over its bound (<= 1 passes): twice
+        the CPU's gap, or ``floor`` of ``scale`` (|ref| if None)."""
+        scale = norm(ref) if scale is None else scale
+        bound = max(2 * norm(cpu - ref), floor * scale, 1e-30)
         return norm(card.cpu().double() - ref) / bound
+
+    def scan_terms(state, anchors, neighbours, head_only) -> float:
+        """The magnitude of what SCAN's loss sums: over the heads,
+        |consistency| + w |entropy|, as scan_loss_and_grads computes them
+        (two forwards, the second from the first's BN statistics)."""
+        with torch.no_grad():
+            a, _, bn1 = ts.clustering_forward(
+                state.params, state.bn_state, anchors, mcfg,
+                train=not head_only)
+            n, _, _ = ts.clustering_forward(state.params, bn1, neighbours,
+                                            mcfg, train=not head_only)
+            _, cons, ent = ts.scan_loss(a, n, cfg.entropy_weight)
+        return float((cons.abs() + cfg.entropy_weight * ent.abs()).sum())
 
     with precision_scope("highest"):
         for name, (opt, lr, is_adam, lg, batch, params, bns) in \
@@ -2819,8 +3026,11 @@ def _scan_card_vs_cpu(torch, ds, cfg) -> dict:
             bn_c, bn_r, bn_g = (a[0] if isinstance(a, tuple) else a
                                 for a in (aux_c, aux_r, aux_g))
             loss_gap = abs(float(loss_g) - float(loss_r)) / abs(float(loss_r))
+            scale = (scan_terms(ref, *(x.double() for x in batch),
+                                name == "scan_head_only")
+                     if name.startswith("scan") else None)
             loss_over = held(loss_g.double(), loss_c.double(), loss_r,
-                             SCAN_LOSS_GAP_BOUND)
+                             SCAN_LOSS_GAP_BOUND, scale)
             gaps = {k: held(g_g[k], g_c[k], v, SCAN_GRAD_GAP_BOUND)
                     for k, v in g_r.items() if norm(v) > 0}
             worst = max(gaps, key=gaps.get)
@@ -2873,7 +3083,8 @@ def _scan_card_vs_cpu(torch, ds, cfg) -> dict:
                 _fatal(f"scan card vs CPU, {name}: the card's update "
                        f"{upd_gap:.3e} from the CPU's update of the same "
                        f"gradients (bound 1e-5 of |value| + lr)")
-            row = dict(loss_gap=loss_gap, grad_over_bound=gaps[worst],
+            row = dict(loss_gap=loss_gap, loss_terms=scale,
+                       grad_over_bound=gaps[worst],
                        grad_gap=card_rel, cpu_grad_gap=cpu_rel,
                        whole_grad_gap=whole,
                        bn_over_bound=bn_over, upd_gap=upd_gap,
@@ -2902,7 +3113,11 @@ def _scan_card_vs_cpu(torch, ds, cfg) -> dict:
                   f"float64 on the CPU the reference): loss "
                   f"{float(loss_g):.6f}, CPU {float(loss_c):.6f}, float64 "
                   f"{float(loss_r):.6f} (card gap {loss_gap:.3e}, "
-                  f"{loss_over:.3f} of its bound); the worst gradient "
+                  f"{loss_over:.3f} of its bound"
+                  + ("" if scale is None else
+                     f", its floor {SCAN_LOSS_GAP_BOUND} of the terms' "
+                     f"magnitude {scale:.4f}")
+                  + f"); the worst gradient "
                   f"{worst} at {gaps[worst]:.3f} of its bound (card "
                   f"{card_rel:.3e} from float64, CPU {cpu_rel:.3e}; "
                   f"bound: twice the CPU's gap or {SCAN_GRAD_GAP_BOUND}); "
@@ -4486,6 +4701,56 @@ def _print_ptxas(name: str, log: str) -> None:
                   flush=True)
 
 
+# flash_ab's shapes: the flash path's and the wide timing shapes
+AB_SHAPES = (FLASH_SHAPE, *WIDE_TIMING_SHAPES)
+
+
+def flash_ab_run(tree: str) -> None:
+    """One side of flash_ab: the flash kernels of the checkout ``tree``,
+    built there, checked against their plain version and timed at
+    AB_SHAPES in bf16 and f32; one JSON line."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    from tpu_ac_torch.kernels import attention as attn
+    from tpu_ac_torch.kernels import build
+
+    if not attn.__file__.startswith(os.path.abspath(tree)):
+        _fatal(f"imported {attn.__file__}, not the checkout at {tree}")
+    build.build_all()
+    for name, log in build.BUILD_LOG.items():
+        _print_ptxas(name, log)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    row = {"tree": os.path.abspath(tree)}
+    for shape in AB_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = _packed_qkv(torch, gen, *shape, dtype)
+            _flash_check(torch, attn, q, k, v, None, f"{list(shape)}")
+            ms, _, launches = _time_launches(
+                lambda: attn.flash_attention_impl(q, k, v,
+                                                  shape[-1] ** -0.5),
+                lambda: attn.LAUNCHES)
+            name = f"{str(dtype).split('.')[-1]}_{'x'.join(map(str, shape))}"
+            row[name] = {"ms": round(ms, 6), "launches_a_call": launches}
+    print(json.dumps(row), flush=True)
+
+
+def flash_ab(parent: str) -> None:
+    """The flash kernels of this checkout against those of ``parent``
+    (another checkout, e.g. ``git archive`` of the parent commit unpacked
+    outside the repository) on one card, each side in a process of its
+    own, in the order parent, this, this, parent."""
+    print(_card_line(), flush=True)
+    here = HERE
+    for tree in (parent, here, here, parent):
+        rc = subprocess.run([sys.executable, os.path.join(HERE,
+                                                          "chip_smoke.py"),
+                             "--flash_ab_run", tree], timeout=900).returncode
+        if rc:
+            _fatal(f"flash_ab: the run of {tree} failed ({rc})")
+
+
 def main() -> None:
     import argparse
 
@@ -4493,7 +4758,17 @@ def main() -> None:
     ap.add_argument("--scaling", type=int, metavar="N",
                     help="instead of the phases: DINO and SCAN's SimCLR on "
                          "1 card and on N (see phase_scaling)")
+    ap.add_argument("--flash_ab", metavar="DIR",
+                    help="instead of the phases: the flash kernels of this "
+                         "checkout against those of another (see flash_ab)")
+    ap.add_argument("--flash_ab_run", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.flash_ab_run:
+        flash_ab_run(args.flash_ab_run)
+        return
+    if args.flash_ab:
+        flash_ab(args.flash_ab)
+        return
     if not os.path.isfile(os.path.join(HERE, "tpu_ac_torch",
                                        "kernels", "distances.py")):
         _fatal("tpu_ac_torch/ not found next to chip_smoke.py: run it "
@@ -4621,6 +4896,16 @@ def main() -> None:
                          mesh_run["launches"], window_err, window_timing))
     kernels.append(entry("flash_attention", FLASH_SOURCE, FLASH_REPLACES,
                          flash_run["launches"], flash_err, flash_timing))
+    # head dims over 64: the wide kernels, bf16 on the ViT-H/14 path, timed
+    # at its [8, 16, 785, 80]; the f32 one beside it (f32_*)
+    wide = flash_timing["wide"]["x".join(map(str, WIDE_TIMING_SHAPES[0]))]
+    wide_err = max(r[d]["max_abs_err"] for r in FLASH_WIDE.values()
+                   for d in r)
+    kernels.append(entry("flash_attention_wide", FLASH_SOURCE,
+                         FLASH_REPLACES, flash_run["vith"]["launches"],
+                         wide_err, wide["bfloat16"]))
+    kernels[-1].update({f"f32_{k}": wide["float32"][k] for k in (
+        "ms", "host_ms", "plain_ms", "bound_ms", "library_ms")})
     kernels[-1]["head_dim_checks"] = {
         str(dh): {d: _round6(r) for d, r in rows.items()}
         for dh, rows in FLASH_WIDE.items()}
@@ -4656,6 +4941,14 @@ def main() -> None:
                                    r4(flash_run["embed_ms"]["flash_f32"]),
                                "dense_f32_same_weights":
                                    r4(flash_run["embed_ms"]["dense_f32"])},
+        "vith14_flash": {
+            "embed_ms_per_image": {k: r4(v) for k, v in
+                                   flash_run["vith"]["embed_ms"].items()},
+            "kernel_ms": r4(flash_run["vith"]["kernel_ms"]),
+            "kernel_share": r4(flash_run["vith"]["kernel_share"]),
+            "rel_l2_flash_dense_f32": [
+                float(f"{g:.4g}") for g in flash_run["vith"]["rel_gaps"]],
+            "phase_s": r4(flash_run["vith"]["phase_s"])},
         "bottle_f32_flash": {
             "launches": flash_run["f32_launches"],
             "rel_l2_to_dense_f32": float(f"{flash_run['f32_gap']:.4g}")},

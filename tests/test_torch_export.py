@@ -236,6 +236,9 @@ class TestFormat:
         with open(tdist.__file__) as f:
             assert blob["ops_source"] == f.read()
         assert "tpu_ac_min_dists" in blob["kernel_source"]
+        # one file: the shared header inlined in place of its include
+        assert "mbar_wait" in blob["kernel_source"]
+        assert '#include "hopper_common.cuh"' not in blob["kernel_source"]
         assert blob["kernel_library"] is None  # exported on the CPU
 
     def test_no_weights_in_the_artifact(self, setup, artifacts):

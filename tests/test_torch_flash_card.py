@@ -1,8 +1,8 @@
 """The flash kernel at head dims over 64, on the card, against its plain
 version (no tpu_ac import: the card's machine runs these with
-``-m cuda``).  Head dims over 64 are zero-padded to a multiple of 64 and
-run as one launch per 64-column slice of V; the check is element by
-element within ``flash_tolerance``, as for Dh = 64."""
+``-m cuda``).  Head dims over 64 run the wide kernels: one launch a call
+up to 256 columns, one per 256-column slice of V above; the check is
+element by element within ``flash_tolerance``, as for Dh = 64."""
 
 import numpy as np
 import pytest
@@ -18,11 +18,11 @@ def _card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("dh", [80, 128, 200])
+@pytest.mark.parametrize("dh", [80, 128, 200, 256, 320])
 @pytest.mark.parametrize("s,n_valid", [(785, None), (130, 100), (1, None)])
 def test_wide_head_dim_on_card(dtype, dh, s, n_valid):
-    """The strided q/k/v views of a packed qkv (Dh = 128 goes in without a
-    copy); ceil(Dh / 64) launches a call."""
+    """The strided q/k/v views of a packed qkv (they go in without a
+    copy); one launch a call of the wide kernel, two at Dh 320."""
     _card()
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(dh + s)
@@ -34,10 +34,12 @@ def test_wide_head_dim_on_card(dtype, dh, s, n_valid):
         bias = torch.zeros(1, 1, 1, s, device="cuda")
         bias[..., n_valid:] = -1e9
     scale = dh ** -0.5
-    before = tattn.LAUNCHES
+    before = (tattn.LAUNCHES, tattn.LAUNCHES_WIDE)
     got = tattn.flash_attention_impl(q, k, v, scale, bias)
     torch.cuda.synchronize()
-    assert tattn.LAUNCHES == before + -(-dh // 64)
+    n = -(-dh // tattn.WIDE_SLICE)
+    assert (tattn.LAUNCHES, tattn.LAUNCHES_WIDE) == (before[0] + n,
+                                                      before[1] + n)
     assert got.shape == (2, 4, s, dh) and got.dtype == dtype
     ids = tattn.bias_to_segment_ids(bias, s)
     want = tattn.flash_attention_plain(q, k, v, scale, ids)

@@ -12,12 +12,12 @@ catches a kernel that loses the lo terms.  The kernel itself is held against the
 version by the ``cuda``-marked tests (skipped without a card) and by
 chip_smoke.py.
 
-Head dims are zero-padded to a multiple of 64 (``pad_head_dim``), as tpu_ac
-pads them to 128 lanes; over 64 the wrapper launches once per 64-column
-slice of V (``flash_by_slices``, run here with each launch's plain
-function).  The plain attention of the padded inputs, sliced back, equals
-tpu_ac's wrapper with JAX's Pallas TPU kernel monkeypatched to its own
-``mha_reference`` (as tests/test_torch_attention.py does).  Tolerance:
+Head dims under 64 are zero-padded to 64 (``pad_head_dim``), as tpu_ac
+pads them to 128 lanes; over 64 they go to the wide kernels, one launch a
+call up to 256 columns (``flash_by_slices``, run here with each launch's
+plain function).  The plain attention of the padded inputs, sliced back,
+equals tpu_ac's wrapper with JAX's Pallas TPU kernel monkeypatched to its
+own ``mha_reference`` (as tests/test_torch_attention.py does).  Tolerance:
 rtol/atol 1e-5 (f32 on both sides, differently ordered sums).
 """
 
@@ -44,40 +44,50 @@ def _tf32(x: torch.Tensor) -> torch.Tensor:
     return (bits & ~0x1FFF).view(torch.float32)
 
 
-def _split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _split(x: torch.Tensor, rn: bool = False
+           ) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's split_tf32: hi = tf32(x), lo = x - hi (exact), which
-    enters the product as tf32(lo)."""
-    hi = _tf32(x)
+    enters the product as tf32(lo); ``rn``: split_tf32_rn, hi rounded to
+    nearest (ties away) instead of truncated."""
+    if rn:
+        bits = x.contiguous().view(torch.int32)
+        hi = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    else:
+        hi = _tf32(x)
     return hi, _tf32(x - hi)
 
 
 def _mma(d: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-         passes: int) -> torch.Tensor:
+         passes: int, rn: bool = False) -> torch.Tensor:
     """d + a @ b as the kernel's m16n8k8 steps: 8-deep slices of the
-    contraction, each 3xTF32 (passes=3) or single-pass TF32 (passes=1)."""
+    contraction, each 3xTF32 (passes=3; ``rn``: split_tf32_rn) or
+    single-pass TF32 (passes=1)."""
     for k0 in range(0, a.shape[-1], 8):
         ak, bk = a[..., k0:k0 + 8], b[..., k0:k0 + 8, :]
         if passes == 1:
             d = d + _tf32(ak) @ _tf32(bk)
             continue
-        (ah, al), (bh, bl) = _split(ak), _split(bk)
+        (ah, al), (bh, bl) = _split(ak, rn), _split(bk, rn)
         d = d + al @ bh
         d = d + ah @ bl
         d = d + ah @ bh
     return d
 
 
-def _emulate(q, k, v, scale: float, passes: int = 3) -> torch.Tensor:
-    """The f32 kernel's arithmetic on f32 q, k, v [B, H, S, Dh], no mask."""
+def _emulate(q, k, v, scale: float, passes: int = 3, tile: int = 64,
+             qk_rn: bool = False) -> torch.Tensor:
+    """The f32 kernel's arithmetic on f32 q, k, v [B, H, S, Dh], no mask:
+    key tiles of ``tile``; ``qk_rn``: q and k split by split_tf32_rn (the
+    wide kernel: tiles of 64 up to 128 columns, 32 above)."""
     c = np.float32(scale * LOG2E).item()
     s_len = q.shape[2]
     m = torch.full(q.shape[:3], -math.inf)
     l = torch.zeros(q.shape[:3])
     acc = torch.zeros(q.shape)
-    for k0 in range(0, s_len, 64):
-        kt, vt = k[..., k0:k0 + 64, :], v[..., k0:k0 + 64, :]
+    for k0 in range(0, s_len, tile):
+        kt, vt = k[..., k0:k0 + tile, :], v[..., k0:k0 + tile, :]
         s = _mma(torch.zeros(*q.shape[:3], kt.shape[2]), q,
-                 kt.transpose(-1, -2), passes)
+                 kt.transpose(-1, -2), passes, qk_rn)
         mn = torch.maximum(m, s.amax(-1) * c)
         corr = torch.exp2(m - mn)
         # the FMA s * c - m rounds once
@@ -177,8 +187,8 @@ def test_padded_head_dim_matches_tpu_ac(jax_flash, dh, n_valid):
 
 def _slice_plain(q, k, v, out, scale, ids):
     """One kernel launch's function in plain PyTorch: the attention of the
-    padded q, k (every 64-column chunk) on the 64-column slice v, written
-    into the slice out."""
+    padded q, k (every column) on the slice v, written into the slice
+    out."""
     logits = q @ k.transpose(-2, -1) * scale
     if ids is not None:
         logits = logits.masked_fill(ids[:, None] != ids[None, :],
@@ -189,10 +199,10 @@ def _slice_plain(q, k, v, out, scale, ids):
 @pytest.mark.parametrize("n_valid", [None, 128])
 @pytest.mark.parametrize("dh", [80, 128, 200])
 def test_wide_head_dim_matches_tpu_ac(jax_flash, dh, n_valid):
-    """Head dims over 64: the wrapper's plan (flash_by_slices: Dh
-    zero-padded to a multiple of 64, one launch per 64-column slice of V
-    and of the output) with each launch's plain function, against tpu_ac's
-    wrapper (which pads Dh to 128 lanes itself)."""
+    """Head dims over 64: the wrapper's plan (flash_by_slices: Dh padded
+    to a multiple of 8, one launch up to 256 columns) with each launch's
+    plain function, against tpu_ac's wrapper (which pads Dh to 128 lanes
+    itself)."""
     s = 200
     q, k, v = (t.numpy() for t in _normal((2, 3, s, dh), seed=dh))
     bias = None if n_valid is None else _key_mask(s, n_valid)
@@ -208,13 +218,14 @@ def test_wide_head_dim_matches_tpu_ac(jax_flash, dh, n_valid):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("dh,n_launch", [(16, 1), (64, 1), (80, 2),
-                                          (128, 2), (200, 4)])
+@pytest.mark.parametrize("dh,n_launch", [(16, 1), (64, 1), (80, 1),
+                                          (128, 1), (200, 1)])
 def test_slice_plan(dh, n_launch):
-    """What each launch is given: q and k with every column, zero-padded
-    to 64 n; V's and the output's slice j (columns 64 j .. 64 j + 63) as
-    views into the [B, S, H, 64 n] output the wrapper allocated; a head dim
-    that is a multiple of 64 is not copied."""
+    """What each launch is given: q and k with every column (zero-padded to
+    64 under 64, as they are over 64: multiples of 8); V and the output
+    whole (up to 256 columns), the output a view into the [B, S, H, Dh']
+    buffer the wrapper allocated; a head dim the kernels take as it is is
+    not copied."""
     q, k, v = _normal((2, 3, 17, dh), seed=5)
     calls = []
 
@@ -223,30 +234,28 @@ def test_slice_plan(dh, n_launch):
         oj.copy_(vj * 2)
 
     out = tattn.flash_by_slices(q, k, v, launch)
-    width = 64 * n_launch
+    width = max(dh, 64)
     assert len(calls) == n_launch
     assert out.shape == (2, 3, 17, dh)
     assert torch.equal(out, v * 2)
-    base = calls[0][3].data_ptr()
-    for j, (qp, kp, vj, oj) in enumerate(calls):
+    for qp, kp, vj, oj in calls:
         assert qp.shape == kp.shape == (2, 3, 17, width)
         assert torch.equal(qp[..., :dh], q) and not bool(qp[..., dh:].any())
-        assert vj.shape == oj.shape == (2, 3, 17, 64)
+        assert vj.shape == oj.shape == (2, 3, 17, width)
         assert oj.stride() == (17 * 3 * width, width, 3 * width, 1)
-        assert oj.data_ptr() == base + 64 * j * 4
-    if dh % 64 == 0:
+    if dh == width:
         assert calls[0][0] is q and calls[0][1] is k
 
 
 def test_3xtf32_within_flash_tolerance_wide_head():
-    """Dh = 80, zero-padded to 128: the kernel sums QK^T over the two
-    64-column chunks in its 8-deep steps, in the order of one 128-deep
-    product, and runs P.V per 64-column slice of V, so its arithmetic is
-    ``_emulate`` of the padded inputs; within the f32 limit as at 64
-    (S = 200: three full key tiles and a ragged one of 8)."""
+    """Dh = 80: the wide kernel sums QK^T and P.V in 8-deep steps over the
+    80 columns themselves (no pad), q and k split with hi rounded to
+    nearest, and runs the online softmax over key tiles of 64 (as at Dh =
+    64; 32 over 128 columns), so its arithmetic is ``_emulate`` of the
+    inputs with qk_rn; within the f32 limit as at 64 (S = 200: three full
+    key tiles and a ragged one of 8)."""
     q, k, v = _normal((1, 2, 200, 80), seed=6)
-    padded = [tattn.pad_head_dim(t) for t in (q, k, v)]
-    got = _emulate(*padded, SCALE)[..., :80]
+    got = _emulate(q, k, v, SCALE, qk_rn=True)
     share = _share_of_tol(got, q, k, v)
     assert share < 0.5, share
 

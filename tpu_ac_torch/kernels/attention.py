@@ -1,5 +1,5 @@
 """Flash (streaming-softmax) attention for the ViT trunk: wrapper of the CUDA
-kernel ``csrc/flash_attention.cu`` and its plain PyTorch version (port of
+kernels ``csrc/flash_attention.cu`` and their plain PyTorch version (port of
 ``tpu_ac.kernels.attention.flash_attention_impl``).
 
     out[b, h, i] = softmax_j(q[b, h, i] . k[b, h, j] * scale) v[b, h, j]
@@ -11,21 +11,24 @@ which becomes the segment ids of the stock TPU kernel (``bias < -1`` gives
 padded query row sees only the padded keys).  A per-batch or wrong-length
 bias raises ``NotImplementedError``, as in ``tpu_ac``.
 
-A CUDA tensor launches the kernel or raises; a CPU tensor runs
-``flash_attention_plain``.  The kernel takes any S (the ragged tail is
-masked in the kernel, not padded) and any head dim: Dh is zero-padded to a
-multiple of 64 (``pad_head_dim``, as ``tpu_ac`` pads to 128 lanes; zero
-columns change neither QK^T nor the kept columns of the output) and the
-output sliced back.  Over 64, q and k go in whole (the kernel sums QK^T
-over their 64-column chunks) and the wrapper launches once per 64-column
-slice of V and the output (``flash_by_slices``).  bf16 runs on the tensor
-cores in bf16, f32 in 3xTF32 (f32 accuracy).  It reads q, k, v
-through their strides, so the strided views of a packed qkv projection go in
-without a copy; what it cannot address (a last dim that is not contiguous,
-rows not 16-byte aligned) raises instead of being copied.  The output is
-[B, H, S, Dh] laid out as [B, S, H, Dh] in memory, the layout the output
-projection reads.  The TPU tuning knobs (``TPU_AC_FLASH_BLOCK_*``) are not
-carried.
+A CUDA tensor launches a kernel or raises; a CPU tensor runs
+``flash_attention_plain``.  The kernels take any S (the ragged tail is
+masked in the kernel, not padded) and any head dim whose query tile fits
+a block's shared memory with every column (``flash_by_slices``; on an
+H100 up to 768 in bf16 and 512 in f32, past which the launch fails and
+raises): Dh <= 64 is zero-padded to 64 (``pad_head_dim``, as
+``tpu_ac`` pads to 128 lanes; zero columns change neither QK^T nor the kept
+columns of the output) and runs the Dh = 64 kernels; over 64, Dh is padded
+only to a multiple of 8 (16-byte rows) and the wide kernels compute QK^T
+over every column once per key tile, in one launch for Dh <= 256 and one
+per 256-column slice of V and the output above.  bf16 runs on the tensor
+cores in bf16 (the wide kernel on wgmma with TMA), f32 in 3xTF32 (f32
+accuracy).  It reads q, k, v through their strides, so the strided views of
+a packed qkv projection go in without a copy; what it cannot address (a
+last dim that is not contiguous, rows not 16-byte aligned) raises instead
+of being copied.  The output is [B, H, S, Dh] laid out as [B, S, H, Dh] in
+memory, the layout the output projection reads.  The TPU tuning knobs
+(``TPU_AC_FLASH_BLOCK_*``) are not carried.
 """
 
 from __future__ import annotations
@@ -35,11 +38,14 @@ import ctypes
 import torch
 
 # kernel launches made by flash_attention_impl (CUDA tensors only); of them
-# the f32 variant's
+# the f32 variant's, and those of the kernels for head dims over 64
 LAUNCHES = 0
 LAUNCHES_F32 = 0
+LAUNCHES_WIDE = 0
 
-HEAD_DIM = 64  # the kernel's head-dim chunk (every dino_vit* name's Dh)
+HEAD_DIM = 64  # the Dh = 64 kernels' head dim (every dino_vit* name's Dh)
+WIDE_ALIGN = 8  # over 64, Dh is padded to a multiple of this (16-byte rows)
+WIDE_SLICE = 256  # V and output columns a wide launch takes at most
 _DTYPES = (torch.bfloat16, torch.float32)
 _STRIDES = ctypes.c_longlong * 12
 
@@ -129,8 +135,8 @@ def _kernel_fn():
 
         fn = library("flash_attention").tpu_ac_flash_attention
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_float,
-                       ci, ci, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                       ctypes.c_float, ci, vp]
         fn.restype = ci
         _FN = fn
     return _FN
@@ -149,48 +155,58 @@ def _check_layout(name: str, t: torch.Tensor) -> None:
             f"{t.data_ptr() % 16} (mod 16)")
 
 
+def padded_head_dim(d: int) -> int:
+    """The width the kernels take for a head dim of ``d``: 64 up to 64,
+    else ``d`` rounded up to a multiple of WIDE_ALIGN."""
+    if d <= HEAD_DIM:
+        return HEAD_DIM
+    return -(-d // WIDE_ALIGN) * WIDE_ALIGN
+
+
 def pad_head_dim(t: torch.Tensor) -> torch.Tensor:
-    """[..., Dh] -> [..., Dh rounded up to a multiple of HEAD_DIM] with zero
-    columns (``t`` itself where Dh is a multiple already)."""
-    pad = -t.shape[-1] % HEAD_DIM
+    """[..., Dh] -> [..., padded_head_dim(Dh)] with zero columns (``t``
+    itself where Dh is that width already)."""
+    pad = padded_head_dim(t.shape[-1]) - t.shape[-1]
     return torch.nn.functional.pad(t, (0, pad)) if pad else t
 
 
 def flash_by_slices(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     launch) -> torch.Tensor:
-    """The kernel's head-dim plan: q, k, v zero-padded to a multiple of
-    HEAD_DIM, ``launch(q, k, v_j, out_j)`` once for each HEAD_DIM-column
-    slice j of V and of the output, which it fills; returns the output
-    [B, H, S, Dh], laid out as [B, S, H, Dh'] (Dh' the padded width) in
-    memory, sliced back to Dh."""
+    """The kernels' head-dim plan: q, k, v zero-padded to
+    ``padded_head_dim``, then ``launch(q, k, v_j, out_j)`` once for each
+    WIDE_SLICE-column slice j of V and of the output, which it fills (one
+    launch on the whole tensors up to WIDE_SLICE columns); q and k always go
+    in whole.  Returns the output [B, H, S, Dh], laid out as [B, S, H, Dh']
+    (Dh' the padded width) in memory, sliced back to Dh."""
     b, h, s, d = q.shape
     q, k, v = pad_head_dim(q), pad_head_dim(k), pad_head_dim(v)
     dp = q.shape[-1]
     out = torch.empty_strided((b, h, s, dp), (s * h * dp, dp, h * dp, 1),
                               dtype=q.dtype, device=q.device)
-    if dp == HEAD_DIM:  # one launch on the tensors themselves
+    if dp <= WIDE_SLICE:  # one launch on the tensors themselves
         launch(q, k, v, out)
     else:
-        for j in range(0, dp, HEAD_DIM):
-            launch(q, k, v[..., j:j + HEAD_DIM], out[..., j:j + HEAD_DIM])
+        for j in range(0, dp, WIDE_SLICE):
+            launch(q, k, v[..., j:j + WIDE_SLICE],
+                   out[..., j:j + WIDE_SLICE])
     return out if dp == d else out[..., :d]
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out: torch.Tensor, scale: float, ids: torch.Tensor | None
             ) -> None:
-    """One kernel launch: q, k [B, H, S, 64 n] and the 64-column slices v,
-    out [B, H, S, 64]."""
-    global LAUNCHES, LAUNCHES_F32
-    b, h, s, _ = q.shape
+    """One kernel launch: q, k [B, H, S, Dqk] and v, out [B, H, S, Dv]
+    (Dqk = Dv = 64: the Dh = 64 kernels; else the wide ones)."""
+    global LAUNCHES, LAUNCHES_F32, LAUNCHES_WIDE
+    b, h, s, dqk = q.shape
+    dv = v.shape[-1]
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_layout(name, t)
     strides = _STRIDES(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                        *out.stride()[:3])
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if ids is None else ids.data_ptr(), strides, b, h, s,
-            float(scale), int(q.dtype == torch.bfloat16),
-            q.shape[-1] // HEAD_DIM)
+            None if ids is None else ids.data_ptr(), strides, b, h, s, dqk,
+            dv, float(scale), int(q.dtype == torch.bfloat16))
     fn = _kernel_fn()
     dev = q.device
     if dev.index == torch.cuda.current_device():
@@ -203,6 +219,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"flash_attention kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
     LAUNCHES_F32 += q.dtype == torch.float32
+    LAUNCHES_WIDE += dqk != HEAD_DIM
 
 
 def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

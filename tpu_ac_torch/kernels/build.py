@@ -3,7 +3,8 @@
 At first use each ``csrc/<name>.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface,
 ``build/tpu_ac_torch/lib<name>-<hash>.so`` under the repository root,
-keyed by a hash of the source and the flags; the libraries are loaded with
+keyed by a hash of the source, the shared headers ``csrc/*.cuh`` it may
+include and the flags; the libraries are loaded with
 ``ctypes``.  All sources compile at once, one ``nvcc`` each.  Nothing else
 is built and nothing is downloaded; a failed build raises.
 
@@ -50,8 +51,9 @@ def _nvcc() -> str:
 
 def _library_path(src: str) -> str:
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    for path in [src, *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     name = os.path.splitext(os.path.basename(src))[0]
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")

@@ -15,7 +15,8 @@ The alpha program holds the min_dists kernel as a node of the
 ``tpu_ac_torch`` op namespace (``kernels/distances.py``), the port's
 counterpart of the Pallas kernel inside ``tpu_ac``'s StableHLO.  So that a
 process without tpu_ac_torch can run that node, the artifact carries the
-source of the module that registers the ops, ``csrc/min_dists.cu``, and,
+source of the module that registers the ops, ``csrc/min_dists.cu`` (with
+its shared header inlined), and,
 when exported for ``cuda``, the kernel library the export built.
 
 Platforms: one exported program per platform ("cpu", "cuda"), each traced
@@ -221,6 +222,10 @@ def _carried_files(platforms) -> dict[str, Any]:
         ops_source = f.read()
     with open(os.path.join(CSRC_DIR, "min_dists.cu")) as f:
         kernel_source = f.read()
+    # one file: the shared header in place of its include
+    include = '#include "hopper_common.cuh"'
+    with open(os.path.join(CSRC_DIR, "hopper_common.cuh")) as f:
+        kernel_source = kernel_source.replace(include, f.read())
     library = None
     if "cuda" in platforms:
         with open(build_all()["min_dists"], "rb") as f:
