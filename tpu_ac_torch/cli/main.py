@@ -46,7 +46,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Directory holding the released DINO .pth files.")
     p.add_argument("--profile", default=None, metavar="TRACE_DIR",
                    help="Write a torch.profiler chrome trace of the sweep "
-                        "into TRACE_DIR.")
+                        "into TRACE_DIR; it carries the ac.* ranges of each "
+                        "category (ac.prefetch_wait, ac.dispatch, ac.embed, "
+                        "ac.alpha, ac.resolve, and the prefetch thread's "
+                        "ac.load, ac.decode, ac.stage).")
     p.add_argument("--precision", default="bfloat16",
                    choices=["default", "highest", "bfloat16"],
                    help="Embed precision: 'bfloat16' (default) runs the "

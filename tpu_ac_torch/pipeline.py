@@ -52,6 +52,10 @@ from tpu_ac_torch.distributed import (
 )
 from tpu_ac_torch.features.embedding import EmbedConfig, embed_features
 from tpu_ac_torch.models.registry import load_backbone
+from tpu_ac_torch.utils.profiling import step_annotation
+
+IMAGES_DECODED = 0
+IMAGES_EMBEDDED = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,8 +205,10 @@ class CategoryEmbedder:
         """[N, 3, H, W] host images (or a ``stage()`` token) -> [N, P, D] f32
         embeddings on ``self.device``; nothing here waits for the
         device."""
+        global IMAGES_EMBEDDED
         staged = images if isinstance(images, _StagedUpload) \
             else self.stage(images)
+        IMAGES_EMBEDDED += staged.host.shape[0]
         chunks = [self._embed(x, self._models[d]).to(self.device)
                   for shards in staged.batches
                   for x, d in zip(shards, self._positions)]
@@ -360,21 +366,28 @@ def _dispatch_category(category: str, test_ds, images, cfg: PipelineConfig,
     memory at once; ``_resolve_category`` waits on its event.  Nothing here
     synchronizes the host with the device.
     """
-    Z = embedder(images)
-    Z_train = embedder(train_images) if cfg.supervised == "supervised" \
-        else None
-    mesh = embedder.mesh
-    packed = compute_alpha_X(Z, cfg.supervised, cfg.tau, Z_train,
-                             precision=cfg.resolved_alpha_precision,
-                             use_mesh=True if mesh is not None else None,
-                             mesh=mesh, packed=True)
-    done = None
-    if packed.device.type == "cuda":
-        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-        host.copy_(packed, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        packed = host
+    with step_annotation("ac.dispatch"):
+        with step_annotation("ac.embed"):
+            Z = embedder(images)
+        Z_train = None
+        if cfg.supervised == "supervised":
+            with step_annotation("ac.embed"):
+                Z_train = embedder(train_images)
+        mesh = embedder.mesh
+        with step_annotation("ac.alpha"):
+            packed = compute_alpha_X(
+                Z, cfg.supervised, cfg.tau, Z_train,
+                precision=cfg.resolved_alpha_precision,
+                use_mesh=True if mesh is not None else None, mesh=mesh,
+                packed=True)
+        done = None
+        if packed.device.type == "cuda":
+            host = torch.empty(packed.shape, dtype=packed.dtype,
+                               pin_memory=True)
+            host.copy_(packed, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            packed = host
     return {"category": category, "test_ds": test_ds, "packed": packed,
             "done": done, "n_patches": int(Z.shape[1])}
 
@@ -382,32 +395,46 @@ def _dispatch_category(category: str, test_ds, images, cfg: PipelineConfig,
 def _resolve_category(pending: dict, cfg: PipelineConfig, output_dir,
                       dataset_name: str) -> dict:
     """Wait for a dispatched category's packed result and materialize it."""
-    if pending["done"] is not None:
-        pending["done"].synchronize()
-    arr = pending["packed"].numpy()
-    p = pending["n_patches"]
-    alpha_np, x_np = arr[:, :p], arr[:, p:]
-    test_ds = pending["test_ds"]
-    result = {"alpha": alpha_np, "X": x_np,
-              "anomaly_labels": [it.anomaly for it in test_ds.items],
-              "items": test_ds.items}
-    if output_dir is not None:
-        d = artifact_dir(output_dir, dataset_name, cfg.backbone_name,
-                         cfg.supervised, cfg)
-        result["artifact_path"] = save_alpha_X(
-            d, pending["category"], cfg.supervised, alpha_np, x_np)
+    with step_annotation("ac.resolve"):
+        with step_annotation("ac.resolve_wait"):
+            if pending["done"] is not None:
+                pending["done"].synchronize()
+        arr = pending["packed"].numpy()
+        p = pending["n_patches"]
+        alpha_np, x_np = arr[:, :p], arr[:, p:]
+        test_ds = pending["test_ds"]
+        result = {"alpha": alpha_np, "X": x_np,
+                  "anomaly_labels": [it.anomaly for it in test_ds.items],
+                  "items": test_ds.items}
+        if output_dir is not None:
+            d = artifact_dir(output_dir, dataset_name, cfg.backbone_name,
+                             cfg.supervised, cfg)
+            result["artifact_path"] = save_alpha_X(
+                d, pending["category"], cfg.supervised, alpha_np, x_np)
     return result
+
+
+def _decode_and_stage(decode, embedder: CategoryEmbedder) -> _StagedUpload:
+    """``decode()``'s uint8 images, counted and handed to ``stage``."""
+    global IMAGES_DECODED
+    with step_annotation("ac.decode"):
+        images = decode()
+    IMAGES_DECODED += images.shape[0]
+    with step_annotation("ac.stage"):
+        return embedder.stage(images)
 
 
 def _load_category(source: str, category: str, cfg: PipelineConfig,
                    embedder: CategoryEmbedder, seed: int):
-    ds = MVTecDataset(source, classname=category, resize=cfg.resize,
-                      imagesize=cfg.imagesize, split=DatasetSplit.TEST)
-    staged = embedder.stage(ds.load_all_images())
-    train = None
-    if cfg.supervised == "supervised":
-        train = embedder.stage(_load_train_images(source, category, cfg,
-                                                  len(ds), seed))
+    with step_annotation("ac.load"):
+        ds = MVTecDataset(source, classname=category, resize=cfg.resize,
+                          imagesize=cfg.imagesize, split=DatasetSplit.TEST)
+        staged = _decode_and_stage(ds.load_all_images, embedder)
+        train = None
+        if cfg.supervised == "supervised":
+            train = _decode_and_stage(
+                lambda: _load_train_images(source, category, cfg, len(ds),
+                                           seed), embedder)
     return ds, staged, train
 
 
@@ -427,7 +454,8 @@ def run_category_sweep(source: str, categories: list[str],
                                 embedder, seed)
         pending = None
         for i, category in enumerate(categories):
-            test_ds, images, train_images = nxt.result()
+            with step_annotation("ac.prefetch_wait"):
+                test_ds, images, train_images = nxt.result()
             if i + 1 < len(categories):
                 nxt = prefetcher.submit(_load_category, source,
                                         categories[i + 1], cfg, embedder,

@@ -2,8 +2,9 @@
 ``cli.dino``; port of ``tpu_ac.utils.profiling``).
 
 ``maybe_profile`` writes a chrome trace (``trace.json``, viewable in
-Perfetto) of everything inside the block; ``step_annotation`` labels a
-region of it.
+Perfetto) of everything inside the block, on every thread where this
+torch can record them all; ``step_annotation`` labels a region of it
+(``pipeline.run_category_sweep``'s ``ac.*`` ranges are such labels).
 """
 
 from __future__ import annotations
@@ -14,17 +15,32 @@ import os
 import torch
 
 
+def all_threads_config():
+    """The profiler option that records the ranges and ops of every thread
+    (the sweep's prefetch thread too; by default the profiler records the
+    thread that started it), or None where this torch lacks it."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+
+        return _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):
+        return None
+
+
 @contextlib.contextmanager
 def maybe_profile(trace_dir: str | None):
     """Trace the block into ``trace_dir/trace.json`` (no-op if None): the
-    host's ops, and the card's kernels where there is a card."""
+    host's ops of every thread, and the card's kernels where there is a
+    card."""
     if not trace_dir:
         yield
         return
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
+    config = all_threads_config()
+    kw = {} if config is None else {"experimental_config": config}
+    with torch.profiler.profile(activities=acts, **kw) as prof:
         yield
     os.makedirs(trace_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
