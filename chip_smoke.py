@@ -27,9 +27,11 @@ Phases, each fatal on failure:
   4. main path: a synthetic MVTec tree of two categories (84 and 168 test
      images, 256 px sources) through tpu_ac_torch.cli.main with the CLI
      defaults (ViT-B/8 full width on its seeded random init, blocks.10+11,
-     2048 -> 4096, bf16, unsupervised, dense attention), then
-     cli.evaluate on its pickles; one category again with --precision
-     default --supervised supervised; the launch counts of each run; the
+     2048 -> 4096, bf16, unsupervised, attention_impl "auto": the flash
+     kernel, 12 launches a batch asserted), then cli.evaluate on its
+     pickles; one category again with --precision default --supervised
+     supervised (f32: the dense attention, no flash launch asserted); the
+     launch counts of each run; the
      min_dists kernel on one category's embeddings against its plain
      version; embed ms/image, alpha ms/category and sweep img/s; one more
      sweep under torch.profiler for the device time by kernel and the busy
@@ -40,11 +42,15 @@ Phases, each fatal on failure:
      attention_impl="flash" (its weights checked exactly), two sweeps of
      the same tree with their flash launches counted (12 blocks x 32
      batches, none f32), their pickles checked, bottle's embeddings
-     against the dense and f32 embedders of the same weights; then bottle
+     against the dense (attention_impl="dense") and f32 embedders of the
+     same weights; then bottle
      through an f32 flash embedder (precision="highest", the f32 kernel:
      its 132 launches asserted, all f32) against the dense f32 embedding
      within F32_FLASH_GAP_BOUND; embed ms/image flash vs dense in bf16 and
-     in f32, sweep img/s, and one profiled sweep; then a ViT-H/14 at full
+     in f32 as device busy time (the union of one embed's kernel, copy
+     and memset intervals under the profiler, their summed durations and
+     the wall time, which the host paces, beside it), sweep img/s, and one
+     profiled sweep; then a ViT-H/14 at full
      width (1280 wide, 32 blocks of 16 heads, Dh 80, MLP 5120; seeded on
      the card) embeds bottle at 224 px through CategoryEmbedder(...,
      attention_impl="flash") in bf16 (blocks.30+31): the wide kernel held
@@ -52,13 +58,14 @@ Phases, each fatal on failure:
      last batch's [4, 16, 257, 80]), 352 launches of the
      wide kernel asserted, Z within VITH_GAP_FACTOR x the bf16 rounding
      noise of the dense embed, compute_alpha_X with its one min_dists
-     launch, alpha/X finite and alpha's rows summing to 1; ms/image flash
-     and dense and the flash kernel's share of the embed;
+     launch, alpha/X finite and alpha's rows summing to 1; device
+     ms/image flash and dense and the flash kernel's share of the embed;
   6. mesh path: the same tree through run_category_sweep with the CLI
      defaults on a virtual dp mesh of 2 x cuda:0 (one process runs the
      ranks one after another, each at its shape on a real 2-card mesh):
-     dp embed plus the triangle-sharded alpha on the window kernel (2
-     window launches a category and no other kernel, asserted), its
+     dp embed (the flash kernel under "auto": 12 launches a shard of each
+     batch) plus the triangle-sharded alpha on the window kernel (2
+     window launches a category and no other min_dists, asserted), its
      pickles checked; per category the dp embeddings against one device's
      and the triangle W against the symmetric kernel's W without its
      self-term, within a bound derived from the 1e-4 rule on d2; one
@@ -76,7 +83,8 @@ Phases, each fatal on failure:
      here, the other two side by side; each process's min_dists launches
      a category (1, 1 and 2 window) and plain calls (0) asserted; the
      served Z (the artifact's embed program here) against the live
-     embedder's, bit for bit or within ZOO_GAP_BOUND; the served alpha/X
+     embedder's (attention_impl="dense": the attention the artifact
+     exports), bit for bit or within ZOO_GAP_BOUND; the served alpha/X
      bit-equal to the live path's on the served Z, and their gap to it
      on the live Z; the native host library built and loaded; export s,
      artifact bytes, serving s a category and images/s beside the card
@@ -101,10 +109,15 @@ Phases, each fatal on failure:
      each at its full registered width on its seeded init, tapped at two
      layers (~28 x 28 and ~14 x 14 grids at 224 px where the family has
      them, printed): the card's f32 embedding of 1 image (TF32 off)
-     against the CPU's within ZOO_GAP_BOUND, then the sweep of bottle
-     (84 images) at the CLI defaults with its pickles checked and its
-     symmetric min_dists launches counted (the counts set to 0 before
-     it), embed ms/image, sweep img/s and the peak memory; each model
+     against the CPU's within ZOO_GAP_BOUND; for the vit family
+     (vit_deit_distilled) its bf16 "auto" embed of 16 images (the flash
+     kernel, its launches asserted) against a "dense" embedder of the
+     same weights within 3 x the bf16 rounding noise (dense bf16 against
+     f32); then the sweep of bottle (84 images) at the CLI defaults with
+     its pickles checked and its symmetric min_dists launches counted
+     (the counts set to 0 before it; a ViT's flash launches too: 12 a
+     batch under "auto", none in the other families), embed ms/image,
+     sweep img/s and the peak memory; each model
      freed before the next; then python -m tpu_ac_torch.cli.main and
      cli.evaluate on dino_xcit_small_12_p8, each a process of its own;
  10. DINO training: a synthetic ImageFolder (2 classes, 448 PNGs at 256
@@ -1003,8 +1016,9 @@ def _check_pickles(out_dir: str, cfg, supervised: str, cats,
 
 def phase_main_path(torch, dist, attn, work: str, root: str,
                     sizes: dict[str, int]):
-    """CLI stage 1 + 2 on the synthetic tree (dense attention); returns
-    launches per mode and the run's numbers."""
+    """CLI stage 1 + 2 on the synthetic tree (bf16, attention_impl
+    "auto": the flash kernel); returns launches per mode and the run's
+    numbers."""
     from tpu_ac_torch.cli.evaluate import main as cli_eval
     from tpu_ac_torch.cli.main import main as cli_main
     from tpu_ac_torch.pipeline import (
@@ -1026,17 +1040,25 @@ def phase_main_path(torch, dist, attn, work: str, root: str,
     cli_main(common + ["--categories", *cats])
     cli_s = time.perf_counter() - t0
     launches["symmetric"] = dist.LAUNCHES
-    if attn.LAUNCHES:
-        _fatal(f"the dense path launched the flash kernel {attn.LAUNCHES} "
-               "times")
+    # "auto" takes the flash kernel in bf16: 12 blocks a batch of 8
+    want = 12 * sum(math.ceil(n / 8) for n in sizes.values())
+    if attn.LAUNCHES != want:
+        _fatal(f"the CLI's bf16 \"auto\" sweep launched the flash kernel "
+               f"{attn.LAUNCHES} times; want {want} (12 blocks x "
+               f"{want // 12} batches)")
+    print(f"CLI sweep (bf16, attention_impl auto): {attn.LAUNCHES} flash "
+          f"launches (12 blocks x {want // 12} batches)", flush=True)
     cli_eval(["--path", root, "--output_dir", out_dir, "--backbone_names",
               "dino_vitbase8", "--tau_list", "1.0", "--supervised_modes",
               "unsupervised", "--categories", *cats])
 
-    dist.LAUNCHES = 0
+    dist.LAUNCHES = attn.LAUNCHES = 0
     cli_main(common + ["--categories", cats[0], "--precision", "default",
                        "--supervised", "supervised"])
     launches["rectangular"] = dist.LAUNCHES
+    if attn.LAUNCHES:
+        _fatal(f"the CLI's f32 run launched the flash kernel "
+               f"{attn.LAUNCHES} times; \"auto\" is dense in f32")
     for mode, n in launches.items():
         if n <= 0:
             _fatal(f"the {mode} kernel was not launched on the main path")
@@ -1180,7 +1202,7 @@ def _profile_busy(torch, work, wall_s: float, label: str) -> float:
         torch.cuda.synchronize()
     events = prof.key_averages()
     rows = [(e.self_device_time_total / 1e3, e.count, e.key)
-            for e in events if e.device_type == DeviceType.CUDA]
+            for e in events if _device_work(e, DeviceType)]
     busy_ms = sum(r[0] for r in rows)
     aten = sum(e.count for e in events if e.key.startswith("aten::"))
     print(f"profile of {label}: device busy {busy_ms:.1f} ms of the "
@@ -1191,6 +1213,46 @@ def _profile_busy(torch, work, wall_s: float, label: str) -> float:
         print(f"  {ms:9.2f} ms {100 * ms / busy_ms:5.1f}% x{count:<6d} "
               f"{key[:90]}", flush=True)
     return 100 * busy_ms / (wall_s * 1e3)
+
+
+def _device_work(event, DeviceType) -> bool:
+    """A profiler event of the card's own work: a kernel, copy or memset,
+    not the device mirror of a ``record_function`` range (the sweep's
+    ``ac.*`` spans), whose time the work inside it already counts."""
+    return event.device_type == DeviceType.CUDA and not getattr(
+        event, "is_user_annotation", False)
+
+
+def _embed_device_ms(torch, embed, images) -> tuple[float, float]:
+    """Device ms an image of one ``embed(images)``, which the host's pace
+    of launching does not change (an embed's wall time it does): the
+    length of the union of its kernel, copy and memset intervals under
+    torch.profiler (the card's busy time, as the benchmark's
+    ``sweep_busy_s`` reads it), and beside it their summed durations,
+    which exceed the union where operations overlap on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        embed(images)
+        torch.cuda.synchronize()
+    spans = sorted(
+        (e.start_ns(), e.start_ns() + e.duration_ns())
+        for e in prof.profiler.kineto_results.events()
+        if "CUDA" in str(e.device_type()) and e.duration_ns() > 0
+        and not getattr(e, "is_user_annotation", lambda: False)())
+    union, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            union += b - a
+            end = b
+        elif b > end:
+            union += b - end
+            end = b
+    summed = sum(b - a for a, b in spans)
+    if not union > 0:
+        _fatal("the profiler saw no device time in an embed")
+    return union / 1e6 / len(images), summed / 1e6 / len(images)
 
 
 def _rel_gap(torch, a, b) -> float:
@@ -1272,10 +1334,12 @@ def phase_flash_path(torch, dist, attn, work: str, root: str,
     images = {c: MVTecDataset(root, classname=c, split=DatasetSplit.TEST)
               .load_all_images() for c in cats}
     dense = build_embedder_for_config(cfg, device="cuda",
-                                      checkpoint_dir=ckpt_dir)
+                                      checkpoint_dir=ckpt_dir,
+                                      attention_impl="dense")
     cfg32 = PipelineConfig(batch_size=8, precision="highest")
     f32 = build_embedder_for_config(cfg32, device="cuda",
-                                    checkpoint_dir=ckpt_dir)
+                                    checkpoint_dir=ckpt_dir,
+                                    attention_impl="dense")
     small = cats[0]
     Zf, Zd, Z32 = (e(images[small]) for e in (emb, dense, f32))
     # and through the f32 flash embedder: the f32 kernel, 12 launches a
@@ -1320,7 +1384,9 @@ def phase_flash_path(torch, dist, attn, work: str, root: str,
                f"rounding noise {noise:.3e}")
     del Zf, Zd, Z32
 
-    embed_ms = {}
+    # the embed's device time an image (what the attention changes) and
+    # its wall time, which the host's launching paces
+    embed_ms, summed_ms, wall_ms = {}, {}, {}
     big = cats[-1]
     for tag, e in (("flash", emb), ("dense", dense),
                    ("flash_f32", f32_flash), ("dense_f32", f32)):
@@ -1329,20 +1395,28 @@ def phase_flash_path(torch, dist, attn, work: str, root: str,
         t0 = time.perf_counter()
         e(images[big])
         torch.cuda.synchronize()
-        embed_ms[tag] = (time.perf_counter() - t0) * 1e3 / sizes[big]
+        wall_ms[tag] = (time.perf_counter() - t0) * 1e3 / sizes[big]
+        embed_ms[tag], summed_ms[tag] = _embed_device_ms(
+            torch, e, images[big])
     n_img = sum(sizes.values())
-    print(f"flash path: embed {embed_ms['flash']:.3f} ms/image (dense "
-          f"{embed_ms['dense']:.3f}, same weights, bf16, batch 8); f32 "
+    print(f"flash path: embed device busy {embed_ms['flash']:.3f} ms/image "
+          f"(dense {embed_ms['dense']:.3f}, same weights, bf16, batch 8; "
+          f"wall {wall_ms['flash']:.3f} and {wall_ms['dense']:.3f}); f32 "
           f"(precision highest) flash {embed_ms['flash_f32']:.3f} ms/image "
-          f"(dense f32 {embed_ms['dense_f32']:.3f}); sweep "
-          f"{n_img / sweep_s[-1]:.1f} img/s over {n_img} images (sweeps "
-          f"{sweep_s} s)", flush=True)
+          f"(dense f32 {embed_ms['dense_f32']:.3f}; wall "
+          f"{wall_ms['flash_f32']:.3f} and {wall_ms['dense_f32']:.3f}); "
+          f"summed operation time flash {summed_ms['flash']:.3f}, dense "
+          f"{summed_ms['dense']:.3f}, flash f32 {summed_ms['flash_f32']:.3f}"
+          f", dense f32 {summed_ms['dense_f32']:.3f}; "
+          f"sweep {n_img / sweep_s[-1]:.1f} img/s over {n_img} images "
+          f"(sweeps {sweep_s} s)", flush=True)
     del f32, f32_flash
     busy = _profile_sweep(
         torch, lambda: run_category_sweep(root, cats, cfg, emb), sweep_s[-1])
     del emb, dense
     vith = phase_vith_flash(torch, dist, attn, images[small])
     return dict(launches=launches["flash_attention"], embed_ms=embed_ms,
+                embed_summed_ms=summed_ms, embed_wall_ms=wall_ms,
                 sweep_img_s=n_img / sweep_s[-1], busy_pct=busy,
                 convert_s=convert_s, rel_gaps=[gap, noise, flash_f32],
                 alpha_gap=alpha_gap, f32_gap=gap32,
@@ -1401,13 +1475,14 @@ def phase_vith_flash(torch, dist, attn, images) -> dict:
     cfg32 = PipelineConfig(layers=layers, batch_size=8, precision="highest")
     n = images.shape[0]
     # the f32 embedder keeps the f32 weights; the bf16 ones cast a copy
-    dense32 = CategoryEmbedder(model, cfg32, device="cuda")
+    dense32 = CategoryEmbedder(model, cfg32, device="cuda",
+                               attention_impl="dense")
     Z32 = dense32(images)
     del dense32
     bf16 = copy.deepcopy(model)
     del model
     flash = CategoryEmbedder(bf16, cfg, device="cuda", attention_impl="flash")
-    dense = CategoryEmbedder(bf16, cfg, device="cuda")
+    dense = CategoryEmbedder(bf16, cfg, device="cuda", attention_impl="dense")
     want = vcfg.depth * math.ceil(n / cfg.batch_size)
     # the wide kernel at the shapes the embed gives it: full batches and the
     # last, smaller one
@@ -1445,7 +1520,8 @@ def phase_vith_flash(torch, dist, attn, images) -> dict:
         _fatal(f"ViT-H/14 alpha/X: {dist.LAUNCHES} min_dists launches "
                f"(want 1), alpha {tuple(alpha.shape)} rows off 1 by "
                f"{row_err:.2e}, or non-finite values")
-    embed_ms = {}
+    # device time an image (the median of 3), and the wall time beside it
+    embed_ms, wall_ms = {}, {}
     for tag, e in (("flash", flash), ("dense", dense)):
         runs = []
         for _ in range(3):  # the median of 3 (one run varied 2x)
@@ -1454,7 +1530,9 @@ def phase_vith_flash(torch, dist, attn, images) -> dict:
             e(images)
             torch.cuda.synchronize()
             runs.append((time.perf_counter() - t0) * 1e3 / n)
-        embed_ms[tag] = sorted(runs)[1]
+        wall_ms[tag] = sorted(runs)[1]
+        embed_ms[tag] = sorted(_embed_device_ms(torch, e, images)[0]
+                               for _ in range(3))[1]
     # the kernel's share: one call at the embed's shape, timed alone, times
     # the launches of the embed
     q, k, v = _packed_qkv(torch, gen, b, h, s, dh, torch.bfloat16)
@@ -1466,14 +1544,17 @@ def phase_vith_flash(torch, dist, attn, images) -> dict:
     print(f"ViT-H/14 flash path ({n_params / 1e6:.1f} M parameters seeded "
           f"on the card in {init_s:.1f} s): bottle, {n} images at "
           f"224 px, {want} launches of the wide bf16 kernel ([{b}, {h}, "
-          f"{s}, {dh}]), 1 min_dists; embed {embed_ms['flash']:.3f} "
-          f"ms/image flash, {embed_ms['dense']:.3f} dense; the flash kernel "
+          f"{s}, {dh}]), 1 min_dists; embed device busy "
+          f"{embed_ms['flash']:.3f} ms/image flash, {embed_ms['dense']:.3f} "
+          f"dense (wall {wall_ms['flash']:.3f}, {wall_ms['dense']:.3f}); "
+          f"the flash kernel "
           f"{call_ms:.4f} ms a call, {100 * share:.1f}% of the flash embed; "
           f"relative L2 flash vs dense bf16 {gap:.3e}, dense bf16 vs f32 "
           f"{noise:.3e} (bound {VITH_GAP_FACTOR} x); alpha rows off 1 by "
           f"{row_err:.2e}; {phase_s:.1f} s; card {card['line']}",
           flush=True)
-    return dict(launches=want, embed_ms=embed_ms, kernel_ms=call_ms,
+    return dict(launches=want, embed_ms=embed_ms, embed_wall_ms=wall_ms,
+                kernel_ms=call_ms,
                 kernel_share=share, rel_gaps=[gap, noise], phase_s=phase_s)
 
 
@@ -1533,6 +1614,9 @@ def phase_mesh_path(torch, dist, attn, work: str, root: str,
     if emb.mesh is not mesh:
         _fatal("the embedder did not take the mesh")
     out_dir = os.path.join(work, "out_mesh")
+    # "auto" takes the flash kernel in bf16, on every shard of a batch
+    want_flash = 12 * dp * sum(math.ceil(n / cfg.batch_size)
+                               for n in sizes.values())
     sweep_s = []
     for _ in range(2):  # the first is warm-up; both are counted
         dist.LAUNCHES = dist.WINDOW_LAUNCHES = attn.LAUNCHES = 0
@@ -1548,10 +1632,12 @@ def phase_mesh_path(torch, dist, attn, work: str, root: str,
               flush=True)
         if launches != {"min_dists_window": dp * len(cats),
                         "min_dists_symmetric_rectangular": 0,
-                        "flash_attention": 0}:
+                        "flash_attention": want_flash}:
             _fatal(f"the mesh sweep launched {launches}; want "
-                   f"{dp * len(cats)} window launches ({dp} a category) "
-                   "and no other kernel")
+                   f"{dp * len(cats)} window launches ({dp} a category), "
+                   f"{want_flash} flash launches (12 blocks x {dp} shards "
+                   f"x {want_flash // (12 * dp)} batches) and no other "
+                   "kernel")
     window_launches = launches["min_dists_window"]
     _check_pickles(out_dir, cfg, "unsupervised", cats, sizes)
 
@@ -1804,7 +1890,8 @@ def phase_export(torch, work: str, root: str, sizes: dict[str, int]) -> dict:
         if tag == "supervised":
             cmds[tag] += ["--train_images", paths["train"]]
     params_np = np.load(params, allow_pickle=True).item()
-    # the live embedders of the same weights: one seeded init, copied
+    # the live embedders of the same weights: one seeded init, copied;
+    # the dense attention, which the artifacts export
     model = load_backbone("dino_vitbase8")[0]
     live_emb = {}
     for tag, _, _, _ in EXPORT_CASES:
@@ -1812,7 +1899,7 @@ def phase_export(torch, work: str, root: str, sizes: dict[str, int]) -> dict:
         live_emb[tag] = CategoryEmbedder(
             copy.deepcopy(model), PipelineConfig(batch_size=8,
                                                  precision=prec),
-            device="cuda",
+            device="cuda", attention_impl="dense",
             mesh=Mesh(["cuda:0"] * 2) if tag == "dp2" else None)
     del model
 
@@ -2187,13 +2274,52 @@ def _zoo_cli(work: str, root: str) -> dict:
     return times
 
 
+ZOO_FLASH_IMAGES = 16  # two batches of 8
+
+
+def _zoo_flash_gaps(torch, emb, model, model32, cfg, images, name):
+    """A zoo ViT's bf16 "auto" embedder ``emb`` (the flash kernel, one
+    launch a block up to the deepest tap, a batch) against a "dense"
+    embedder of the same bf16 ``model`` and the f32 dense embed of
+    ``model32``: (flash vs dense bf16, dense bf16 vs f32) relative L2 gaps,
+    the first within 3x the second, as the flash path holds the flash
+    sweep."""
+    import dataclasses
+
+    from tpu_ac_torch.kernels import attention as attn
+    from tpu_ac_torch.pipeline import CategoryEmbedder
+
+    dense = CategoryEmbedder(model, cfg, device="cuda", mesh=None,
+                             attention_impl="dense")
+    f32 = CategoryEmbedder(model32, dataclasses.replace(
+        cfg, precision="highest"), device="cuda", mesh=None)
+    want = (max(cfg.embed_config.tap_indices) + 1) * math.ceil(
+        len(images) / cfg.batch_size)
+    before = attn.LAUNCHES
+    z_flash = emb(images)
+    torch.cuda.synchronize()
+    launches = attn.LAUNCHES - before
+    z_dense, z32 = dense(images), f32(images)
+    gap, noise = _rel_gap(torch, z_flash, z_dense), _rel_gap(
+        torch, z_dense, z32)
+    if launches != want or not (bool(torch.isfinite(z_flash).all()) and
+                                gap <= 3.0 * noise):
+        _fatal(f"zoo {name}: the bf16 auto embed launched the flash kernel "
+               f"{launches} times (want {want}); flash vs dense "
+               f"{gap:.3e} against 3 x the bf16 rounding noise {noise:.3e}")
+    return gap, noise
+
+
 def phase_zoo(torch, dist, attn, work: str, root: str) -> dict:
     """Each ZOO name at full width on its seeded init: the card's f32
-    embedding of 1 image against the CPU's, then the clustering sweep of
+    embedding of 1 image against the CPU's; for a ViT, the bf16 "auto"
+    embed (the flash kernel) against the dense bf16 one within 3x the bf16
+    rounding noise (_zoo_flash_gaps); then the clustering sweep of
     the 84-image bottle category at the CLI defaults (bf16, batch 8,
     unsupervised, tau 1, 2048 -> 4096) with its pickles checked and its
     symmetric min_dists launches counted, embed ms/image, sweep img/s and
     the peak memory; then cli.main + cli.evaluate on an XCiT."""
+    import copy
     import gc
 
     import numpy as np
@@ -2237,7 +2363,15 @@ def phase_zoo(torch, dist, attn, work: str, root: str) -> dict:
         n_patches = z_card.shape[1]
         cfg = PipelineConfig(backbone_name=name, layers=taps, batch_size=8,
                              precision="bfloat16")
+        # the f32 weights, kept for a ViT's flash check below (an
+        # embedder casts its model to bf16 in place)
+        model32 = copy.deepcopy(model) if family == "vit" else None
         emb = CategoryEmbedder(model, cfg, device="cuda", mesh=None)
+        flash_gaps = None
+        if model32 is not None:
+            flash_gaps = _zoo_flash_gaps(torch, emb, model, model32, cfg,
+                                         images[:ZOO_FLASH_IMAGES], name)
+            del model32
         emb(images)  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2249,10 +2383,17 @@ def phase_zoo(torch, dist, attn, work: str, root: str) -> dict:
                                          output_dir=out):
             pass
         launches = dist.LAUNCHES
-        if launches <= 0 or dist.WINDOW_LAUNCHES or attn.LAUNCHES:
+        # a ViT's bf16 "auto" embed takes the flash kernel: one launch a
+        # block up to the deepest tap, a batch
+        want_flash = 0 if family != "vit" else (
+            max(cfg.embed_config.tap_indices) + 1) * math.ceil(
+                len(images) / cfg.batch_size)
+        if launches <= 0 or dist.WINDOW_LAUNCHES or \
+                attn.LAUNCHES != want_flash:
             _fatal(f"zoo {name}: the sweep launched min_dists {launches} "
                    f"times (window {dist.WINDOW_LAUNCHES}, flash "
-                   f"{attn.LAUNCHES}); want the symmetric kernel only")
+                   f"{attn.LAUNCHES}); want the symmetric kernel and "
+                   f"{want_flash} flash launches")
         _check_pickles(out, cfg, "unsupervised", ["bottle"],
                        {"bottle": len(images)}, n_patches)
         t0 = time.perf_counter()
@@ -2265,6 +2406,7 @@ def phase_zoo(torch, dist, attn, work: str, root: str) -> dict:
                           embed_ms=embed_ms,
                           sweep_img_s=len(images) / sweep_s,
                           gap=gap, launches=launches, peak_gib=peak,
+                          flash_gaps=flash_gaps,
                           phase_s=time.perf_counter() - t_start)
         print(f"zoo {name} ({family}, taps {', '.join(taps)} -> "
               f"{n_patches} patches): {n_params / 1e6:.1f} M params, embed "
@@ -2272,7 +2414,10 @@ def phase_zoo(torch, dist, attn, work: str, root: str) -> dict:
               f"{len(images) / sweep_s:.1f} img/s, card vs CPU f32 gap "
               f"{gap:.3e} (bound {ZOO_GAP_BOUND}), min_dists launches "
               f"{launches}, peak {peak:.2f} GiB, "
-              f"{rows[name]['phase_s']:.1f} s", flush=True)
+              + ("" if flash_gaps is None else
+                 f"bf16 auto (flash) vs dense {flash_gaps[0]:.3e}, dense "
+                 f"bf16 vs f32 {flash_gaps[1]:.3e} (relative L2), ")
+              + f"{rows[name]['phase_s']:.1f} s", flush=True)
         del model, emb, z_cpu, z_card
         gc.collect()
         torch.cuda.empty_cache()
@@ -4871,8 +5016,8 @@ def main() -> None:
     flash_timing = phase_flash_timing(torch, attn)
 
     print(f"main path on {kind} ({card}): embed "
-          f"{run['embed_ms_per_image']:.3f} ms/image (ViT-B/8 + tail, bf16,"
-          f" batch 8), alpha " + ", ".join(
+          f"{run['embed_ms_per_image']:.3f} ms/image wall (ViT-B/8 + tail, "
+          f"bf16, batch 8, flash under auto), alpha " + ", ".join(
               f"{c} (N={sizes[c]}) {ms:.1f} ms"
               for c, ms in run["alpha_ms"].items())
           + ", host decode " + ", ".join(
@@ -4933,17 +5078,21 @@ def main() -> None:
         "flash_f32_plain_ms": r4(t["f32_plain_ms"]),
         "flash_f32_library_ms": r4(t["f32_library_ms"]),
         "dense_attention_ms": r4(t["dense_ms"]),
-        "embed_ms_per_image": {"dense": r4(run["embed_ms_per_image"]),
-                               "flash": r4(flash_run["embed_ms"]["flash"]),
-                               "dense_same_weights":
-                                   r4(flash_run["embed_ms"]["dense"]),
-                               "flash_f32":
-                                   r4(flash_run["embed_ms"]["flash_f32"]),
-                               "dense_f32_same_weights":
-                                   r4(flash_run["embed_ms"]["dense_f32"])},
+        # the main path's wall time; the flash path's device busy, summed
+        # operation and wall times of the same weights' embeds
+        "embed_ms_per_image": {"auto_wall": r4(run["embed_ms_per_image"])},
+        "embed_device_busy_ms_per_image": {
+            k: r4(v) for k, v in flash_run["embed_ms"].items()},
+        "embed_summed_op_ms_per_image": {
+            k: r4(v) for k, v in flash_run["embed_summed_ms"].items()},
+        "embed_wall_ms_per_image": {
+            k: r4(v) for k, v in flash_run["embed_wall_ms"].items()},
         "vith14_flash": {
-            "embed_ms_per_image": {k: r4(v) for k, v in
-                                   flash_run["vith"]["embed_ms"].items()},
+            "embed_device_busy_ms_per_image": {
+                k: r4(v) for k, v in flash_run["vith"]["embed_ms"].items()},
+            "embed_wall_ms_per_image": {
+                k: r4(v) for k, v in
+                flash_run["vith"]["embed_wall_ms"].items()},
             "kernel_ms": r4(flash_run["vith"]["kernel_ms"]),
             "kernel_share": r4(flash_run["vith"]["kernel_share"]),
             "rel_l2_flash_dense_f32": [
@@ -4952,9 +5101,9 @@ def main() -> None:
         "bottle_f32_flash": {
             "launches": flash_run["f32_launches"],
             "rel_l2_to_dense_f32": float(f"{flash_run['f32_gap']:.4g}")},
-        "sweep_img_s": {"dense": r4(run["sweep_img_s"]),
+        "sweep_img_s": {"auto": r4(run["sweep_img_s"]),
                         "flash": r4(flash_run["sweep_img_s"])},
-        "busy_pct": {"dense": r4(run["busy_pct"]),
+        "busy_pct": {"auto": r4(run["busy_pct"]),
                      "flash": r4(flash_run["busy_pct"])},
         "decode_ms": {c: r4(ms) for c, ms in run["decode_ms"].items()},
         "alpha_ms": {c: r4(ms) for c, ms in run["alpha_ms"].items()},
@@ -4977,7 +5126,11 @@ def main() -> None:
                           "sweep_img_s": r4(r["sweep_img_s"]),
                           "gap": float(f"{r['gap']:.4g}"),
                           "launches": r["launches"],
-                          "peak_gib": r4(r["peak_gib"])}
+                          "peak_gib": r4(r["peak_gib"]),
+                          **({} if r["flash_gaps"] is None else {
+                              "rel_l2_flash_dense_f32": [
+                                  float(f"{g:.4g}")
+                                  for g in r["flash_gaps"]]})}
                    for name, r in zoo_run["rows"].items()}},
         "dino": {k: (float(f"{v:.6g}") if isinstance(v, float) else v)
                  for k, v in dino_run.items()},

@@ -12,7 +12,9 @@ and ``forward`` stops after the deepest tap.  ``attention_impl="flash"``
 runs each block's attention through
 ``kernels.attention.flash_attention_impl`` instead (the port of
 ``tpu_ac.kernels.attention``): the CUDA flash kernel on the card, its
-plain version on the CPU.  The token
+plain version on the CPU; ``pipeline.CategoryEmbedder`` passes it under
+its default ``attention_impl="auto"`` for a bfloat16 embed on the card,
+and the dense attention elsewhere.  The token
 stream stays at its true length (785 at ViT-B/8, 224 px): the kernel masks
 the ragged tail itself, so ``tpu_ac``'s ``seq_pad`` is not needed, and the
 padded JAX forward equals the unpadded one on the real tokens

@@ -51,11 +51,18 @@ from tpu_ac_torch.distributed import (
     sharded_weight_distance_unsupervised,
 )
 from tpu_ac_torch.features.embedding import EmbedConfig, embed_features
+from tpu_ac_torch.kernels import attention as flash_attention
 from tpu_ac_torch.models.registry import load_backbone
 from tpu_ac_torch.utils.profiling import step_annotation
 
 IMAGES_DECODED = 0
 IMAGES_EMBEDDED = 0
+# embed batches during which the hand-written flash kernel launched
+# (``kernels.attention.LAUNCHES`` rose): once a batch, not a shard or block
+ATTENTION_FUSED_BATCHES = 0
+ATTENTION_IMPLS = ("auto", "dense", "flash")
+# the device type on which "auto" takes the flash kernel
+FLASH_DEVICE_TYPE = "cuda"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,10 +123,15 @@ class CategoryEmbedder:
     (every float tensor, BN statistics included, as ``tpu_ac`` casts its
     params).  The embed
     dispatches on its ``family`` (``features.embedding.FAMILY_EMBEDDERS``).
-    ``attention_impl`` (ViT only): "auto" is the dense attention, as in
-    ``tpu_ac``; "flash" runs every block's attention through the flash
-    kernel (``kernels/attention.py``), on the true token count (no
-    ``seq_pad``).
+    ``attention_impl`` (ViT only): "flash" runs every block's attention
+    through the flash kernel (``kernels/attention.py``; its plain version
+    on the CPU), on the true token count (no ``seq_pad``); "dense" runs
+    the dense attention, as ``tpu_ac`` does by default; "auto" takes the
+    flash kernel for a bfloat16 embed on a card (on a card the kernels are
+    not built for, their build or launch raises, as ``min_dists`` does)
+    and the dense attention otherwise: on the CPU, in f32 (3xTF32 is not
+    the f32 products ``"highest"`` states) and while the embed is traced
+    for export (``utils/export.py``), which exports the dense attention.
 
     ``mesh``: a ``Mesh`` shards each batch over its positions (one model
     replica per distinct device; ``batch_size`` must divide evenly; then
@@ -132,8 +144,9 @@ class CategoryEmbedder:
 
     def __init__(self, model, cfg: PipelineConfig,
                  device="cuda", attention_impl: str = "auto", mesh=None):
-        if attention_impl not in ("auto", "flash"):
-            raise ValueError(f"attention_impl {attention_impl!r}")
+        if attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"attention_impl {attention_impl!r}; want one "
+                             f"of {ATTENTION_IMPLS}")
         self._family = model.family
         if attention_impl == "flash" and self._family != "vit":
             raise ValueError(f"attention_impl 'flash' needs a ViT, not the "
@@ -159,7 +172,7 @@ class CategoryEmbedder:
             self._models[d] = m.to(device=d, dtype=self._dtype)
         self._model = self._models[self.device]
         self._cfg = cfg
-        self._attention = "flash" if attention_impl == "flash" else None
+        self._attention = attention_impl
 
     def stage(self, images: np.ndarray) -> _StagedUpload:
         """Start uploading uint8 [N, 3, H, W] images, padded to a multiple of
@@ -191,11 +204,23 @@ class CategoryEmbedder:
         if images.dtype == torch.uint8:
             images = normalize_on_device(images)
         images = images.to(self._dtype)
-        kw = {"attention_impl": self._attention} \
+        kw = {"attention_impl": self._attention_on(images.device)} \
             if self._family == "vit" else {}
         z = embed_features(self._family, model, images,
                            self._cfg.embed_config, **kw)
         return z.to(torch.float32)
+
+    def _attention_on(self, device: torch.device) -> str | None:
+        """The attention a ViT embed on ``device`` runs, ``attention_impl``
+        resolved: "flash", or None (dense; any other family)."""
+        if self._family != "vit":
+            return None
+        if self._attention == "auto":
+            fused = (self._dtype == torch.bfloat16 and
+                     not torch.compiler.is_compiling() and
+                     device.type == FLASH_DEVICE_TYPE)
+            return "flash" if fused else None
+        return "flash" if self._attention == "flash" else None
 
     def _embed(self, batch: torch.Tensor, model) -> torch.Tensor:
         with precision_scope(self._cfg.precision), torch.inference_mode():
@@ -205,13 +230,16 @@ class CategoryEmbedder:
         """[N, 3, H, W] host images (or a ``stage()`` token) -> [N, P, D] f32
         embeddings on ``self.device``; nothing here waits for the
         device."""
-        global IMAGES_EMBEDDED
+        global IMAGES_EMBEDDED, ATTENTION_FUSED_BATCHES
         staged = images if isinstance(images, _StagedUpload) \
             else self.stage(images)
         IMAGES_EMBEDDED += staged.host.shape[0]
-        chunks = [self._embed(x, self._models[d]).to(self.device)
-                  for shards in staged.batches
-                  for x, d in zip(shards, self._positions)]
+        chunks = []
+        for shards in staged.batches:
+            launches = flash_attention.LAUNCHES
+            chunks += [self._embed(x, self._models[d]).to(self.device)
+                       for x, d in zip(shards, self._positions)]
+            ATTENTION_FUSED_BATCHES += flash_attention.LAUNCHES > launches
         return torch.cat(chunks)[:staged.n]
 
 
@@ -486,9 +514,9 @@ def build_embedder_for_config(cfg: PipelineConfig, *, device="cuda",
                               seed: int = 0, mesh="auto") -> CategoryEmbedder:
     """The registry's backbone for ``cfg`` (a checkpoint from
     ``checkpoint_dir`` or the default cache dirs, else the seeded init) in
-    a ``CategoryEmbedder``; ``attention_impl="flash"`` takes the flash
-    kernel path; ``mesh`` as in ``CategoryEmbedder`` ("auto": every card,
-    when there is more than one)."""
+    a ``CategoryEmbedder``; ``attention_impl`` and ``mesh`` as in
+    ``CategoryEmbedder`` (``mesh="auto"``: every card, when there is more
+    than one)."""
     model, _backbone_cfg, _family = load_backbone(
         cfg.backbone_name, checkpoint_dir=checkpoint_dir, seed=seed)
     return CategoryEmbedder(model, cfg, device=device,

@@ -172,7 +172,8 @@ def _check_exportable(embedder, cfg) -> None:
     if embedder._attention == "flash":
         raise NotImplementedError(
             "export of a flash-attention embedder is not ported yet "
-            f"({FLASH_EXPORT_ITEM}); build it with attention_impl='auto'")
+            f"({FLASH_EXPORT_ITEM}); build it with attention_impl='auto' or "
+            "'dense'")
 
 
 def _devices(embedder, platforms) -> dict[str, torch.device]:
@@ -264,7 +265,8 @@ def export_category_programs(embedder, cfg, n_images: int, *,
     """Serialize the embed + alpha+X programs for one serving shape.
 
     Args:
-        embedder: a single-device ``CategoryEmbedder`` with dense
+        embedder: a single-device ``CategoryEmbedder``, its
+            ``attention_impl`` "auto" or "dense": either exports the dense
             attention.
         cfg: the ``PipelineConfig`` (batch_size, tau, mode and precision
             are baked into the artifact).
