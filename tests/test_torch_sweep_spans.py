@@ -4,7 +4,11 @@ category (``ac.embed``, ``ac.decode`` and ``ac.stage`` once more for the
 train set when supervised), nested as the sweep's layers are, the prefetch
 thread's ranges on a thread of their own, the counters at the tree's true
 and padded counts, and a sweep's arrays the same under the profiler,
-without it, and computed category by category."""
+without it, and computed category by category.  Inside ``ac.embed`` each
+batch opens ``ac.embed.trunk`` (the backbone) and ``ac.embed.tail`` (the
+embedding tail), for a ViT and for a ResNet; the ViT's position table is
+resized once a grid in a sweep of many batches
+(``models.vit.POS_EMBED_RESIZES``)."""
 
 import json
 import os
@@ -20,19 +24,32 @@ from tpu_ac_torch.data.mvtec import (
     MVTecDataset,
     make_synthetic_mvtec,
 )
+from tpu_ac_torch.models import vit as tvit
+from tpu_ac_torch.models.convert import load_jax_params
+from tpu_ac_torch.models.registry import (
+    BACKBONE_CONFIGS,
+    BackboneSpec,
+    load_backbone,
+    register_backbone,
+)
+from tpu_ac_torch.models.resnet import ResNetConfig
 from tpu_ac_torch.models.vit import ViT, ViTConfig
 from tpu_ac_torch.utils.profiling import all_threads_config, maybe_profile
 
 VIT = dict(patch_size=8, embed_dim=64, depth=2, num_heads=4, img_size=32)
-EMBED = dict(layers=("blocks.0", "blocks.1"), pretrain_embed_dimension=96,
-             target_embed_dimension=192, resize=36, imagesize=32,
-             precision="highest", batch_size=8, train_ratio=0.5)
+EMBED_CFG = dict(layers=("blocks.0", "blocks.1"),
+                 pretrain_embed_dimension=96, target_embed_dimension=192,
+                 resize=36, imagesize=32, precision="highest", batch_size=8,
+                 train_ratio=0.5)
 # category -> test images a defect folder (3 folders: good and 2 defects);
 # 12 and 9 test images pad to 16 each, 6 and 4 train images to 8 each
 TREE = {"bottle": 4, "cable": 3}
 SWEEP = ("ac.prefetch_wait", "ac.dispatch", "ac.embed", "ac.alpha",
          "ac.resolve", "ac.resolve_wait")
 PREFETCH = ("ac.load", "ac.decode", "ac.stage")
+# once an embed batch, inside ac.embed: 12 + 9 test images at batch 8
+EMBED = ("ac.embed.trunk", "ac.embed.tail")
+BATCHES = 2 + 2
 
 
 @pytest.fixture(scope="module")
@@ -51,7 +68,7 @@ def model():
 
 
 def _embedder(model, mode):
-    cfg = pipeline.PipelineConfig(supervised=mode, **EMBED)
+    cfg = pipeline.PipelineConfig(supervised=mode, **EMBED_CFG)
     return cfg, pipeline.CategoryEmbedder(model, cfg, device="cpu")
 
 
@@ -82,7 +99,7 @@ def test_ranges_once_a_category_and_nested(root, model, mode):
     ranges = _ranges(prof)
     names = [r[0] for r in ranges]
     # fixed names: the category is never part of one
-    assert set(names) <= set(SWEEP + PREFETCH)
+    assert set(names) <= set(SWEEP + PREFETCH + EMBED)
     sets = 2 if mode == "supervised" else 1
     for name in SWEEP:
         want = sets if name == "ac.embed" else 1
@@ -156,3 +173,54 @@ def test_profile_trace_holds_both_threads_ranges(root, model, tmp_path):
     if all_threads_config() is not None:
         assert set(PREFETCH) <= set(tids)
         assert tids["ac.decode"].isdisjoint(tids["ac.dispatch"])
+
+
+@pytest.mark.parametrize("family", ["vit", "resnet"])
+def test_trunk_and_tail_nested_in_embed(root, model, family):
+    if family == "vit":
+        net = model
+    else:
+        name = "tiny_spans_resnet"
+        register_backbone(name, BackboneSpec("resnet", ResNetConfig(
+            block_counts=(1, 1, 1, 1), width_per_group=16, expansion=1,
+            block="basic"), None))
+        try:
+            net = load_backbone(name)[0]
+        finally:
+            BACKBONE_CONFIGS.pop(name)
+    cfg = pipeline.PipelineConfig(
+        supervised="unsupervised",
+        **{**EMBED_CFG, "layers": ("blocks.0", "blocks.1") if
+           family == "vit" else ("layer2", "layer3")})
+    emb = pipeline.CategoryEmbedder(net, cfg, device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _sweep(root, cfg, emb)
+    ranges = _ranges(prof)
+    by = {n: [r for r in ranges if r[0] == n] for n in ("ac.embed",) + EMBED}
+    assert len(by["ac.embed"]) == len(TREE)
+    for name in EMBED:
+        assert len(by[name]) == BATCHES, name
+        for r in by[name]:
+            assert any(_inside(r, o) for o in by["ac.embed"]), (name, r)
+    # the tail of a batch starts after its trunk has ended
+    for trunk, tail in zip(sorted(by[EMBED[0]], key=lambda r: r[1]),
+                           sorted(by[EMBED[1]], key=lambda r: r[1])):
+        assert trunk[2] <= tail[1]
+
+
+def test_pos_table_resized_once_a_grid(root):
+    """A table of 5 x 5 (40 px at patch 8) under a sweep of 4 batches at
+    32 px and one at 48 px: one resize a grid, none in a second sweep."""
+    vit = ViTConfig(**{**VIT, "img_size": 40})
+    net = load_jax_params(ViT(vit), tvit.init_vit_params(0, vit)).eval()
+    for imagesize in (32, 48):
+        cfg = pipeline.PipelineConfig(
+            supervised="unsupervised",
+            **{**EMBED_CFG, "resize": imagesize + 4,
+               "imagesize": imagesize})
+        emb = pipeline.CategoryEmbedder(net, cfg, device="cpu")
+        n0 = tvit.POS_EMBED_RESIZES
+        _sweep(root, cfg, emb)
+        assert tvit.POS_EMBED_RESIZES - n0 == 1
+        _sweep(root, cfg, emb)
+        assert tvit.POS_EMBED_RESIZES - n0 == 1

@@ -58,21 +58,31 @@ def main(argv=None) -> dict:
                         "manifest; non-zero exit on mismatch")
     p.add_argument("--update_manifests", nargs="*", metavar="NAME",
                    default=None,
-                   help="regenerate tpu_ac_torch/models/manifests.json (all "
-                        "registry names, or just the listed ones)")
+                   help="regenerate tpu_ac_torch/models/manifests.json and "
+                        "port_manifests.json (all built-in and port-only "
+                        "names, or just the listed ones)")
     p.add_argument("--cache_dir",
                    default=os.path.expanduser("~/.cache/tpu_ac/checkpoints"))
     args = p.parse_args(argv)
 
     if args.update_manifests is not None:
         from tpu_ac_torch.models import manifest
+        from tpu_ac_torch.models.registry import (
+            BUILTIN_BACKBONES,
+            PORT_BACKBONES,
+        )
 
         names = args.update_manifests or None
-        manifests = manifest.load_manifests() if names else {}
-        manifests.update(manifest.generate_all(names))
-        manifest.save_manifests(manifests)
-        print(f"manifests written: {len(manifests)} models -> "
-              f"{manifest.MANIFEST_PATH}")
+        for path, own in ((manifest.MANIFEST_PATH, BUILTIN_BACKBONES),
+                          (manifest.PORT_MANIFEST_PATH, PORT_BACKBONES)):
+            pick = sorted(own) if names is None else \
+                [n for n in names if n in own]
+            if not pick:
+                continue
+            manifests = manifest.load_manifests(path) if names else {}
+            manifests.update(manifest.generate_all(pick))
+            manifest.save_manifests(manifests, path)
+            print(f"manifests written: {len(manifests)} models -> {path}")
         return {}
 
     if args.checkpoint is None or args.backbone is None:

@@ -1,6 +1,8 @@
 """CLI stage 1: per-category alpha matrix + weighted embedding (port of
 ``tpu_ac.cli.main``): the same flags, defaults and output tree, plus
-``--device`` (default ``cuda``; ``cpu`` must be asked for).
+``--device`` (default ``cuda``; ``cpu`` must be asked for) and the image
+sizes ``--resize`` and ``--imagesize`` (default 256 and 224, the sizes
+``tpu_ac`` fixes; a backbone's patch must divide ``--imagesize``).
 
     python -m tpu_ac_torch.cli.main --path data/mvtec_ad --device cuda
 """
@@ -42,6 +44,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--categories", nargs="+", default=None,
                    help="Subset of categories (default: all 15).")
     p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--resize", type=int, default=256,
+                   help="Shorter edge the images are resized to.")
+    p.add_argument("--imagesize", type=int, default=224,
+                   help="Side of the centre crop the backbone embeds "
+                        "(448 for dinov2_vitg14_reg at DINOv2's anomaly "
+                        "setting, with --resize 512).")
     p.add_argument("--checkpoint_dir", default=None,
                    help="Directory holding the released DINO .pth files.")
     p.add_argument("--profile", default=None, metavar="TRACE_DIR",
@@ -97,6 +105,8 @@ def main(argv=None) -> None:
             tau=args.tau,
             train_ratio=args.train_ratio,
             supervised=supervised,
+            resize=args.resize,
+            imagesize=args.imagesize,
             batch_size=args.batch_size,
             precision=args.precision,
             alpha_precision=args.alpha_precision,

@@ -16,6 +16,10 @@ except that every family but the ViT runs its tail with TF32 off, as
 ``tpu_ac`` runs it at ``HIGHEST`` behind the trunk; a trunk whose
 ``tpu_ac`` forward defaults to ``HIGHEST`` (``trunk_precision``) runs with
 TF32 off too.  ``embed_features`` dispatches on ``FAMILY_EMBEDDERS``.
+Every family's embed opens two ``record_function`` ranges (inside the
+sweep's ``ac.embed``): ``ac.embed.trunk`` around the backbone's forward
+and ``ac.embed.tail`` around ``embed_feature_maps``; none while the embed
+is traced for export.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from tpu_ac_torch.ops.pooling import (
     adaptive_avg_pool1d,
     patchify,
 )
+from tpu_ac_torch.utils.profiling import step_annotation
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,16 +132,35 @@ def embed_feature_maps(feature_maps: Sequence[torch.Tensor],
                                cfg.target_embed_dimension)
 
 
+def _span(name: str):
+    """``step_annotation(name)``, or nothing while the embed is traced."""
+    if torch.compiler.is_compiling():
+        return contextlib.nullcontext()
+    return step_annotation(name)
+
+
+def _trunk(model, images: torch.Tensor, **kw):
+    """The backbone's forward in the ``ac.embed.trunk`` range."""
+    with _span("ac.embed.trunk"):
+        return model(images, **kw)
+
+
+def _tail(maps: Sequence[torch.Tensor], cfg: EmbedConfig) -> torch.Tensor:
+    """``embed_feature_maps`` in the ``ac.embed.tail`` range."""
+    with _span("ac.embed.tail"):
+        return embed_feature_maps(maps, cfg)
+
+
 def embed_vit_features(model: ViT, images: torch.Tensor,
                        cfg: EmbedConfig, *,
                        attention_impl: str | None = None) -> torch.Tensor:
     """[B, 3, H, W] normalized images -> [B, P, target_embed_dimension]."""
     taps = cfg.tap_indices
-    outs = model(images, taps=taps, attention_impl=attention_impl)
-    # DeiT-distilled carries an extra prefix (dist) token; keep exactly one
-    # prefix so the shared CLS-drop path applies
-    skip = model.cfg.num_prefix_tokens - 1
-    return embed_feature_maps([outs[t][:, skip:] for t in taps], cfg)
+    outs = _trunk(model, images, taps=taps, attention_impl=attention_impl)
+    # DeiT-distilled's dist token and DINOv2's registers follow CLS; keep
+    # exactly one prefix token so the shared CLS-drop path applies
+    skip = model.cfg.num_prefix_tokens + model.cfg.num_register_tokens - 1
+    return _tail([outs[t][:, skip:] for t in taps], cfg)
 
 
 def _trunk_scope(model):
@@ -154,9 +178,9 @@ def embed_trunk_features(model, images: torch.Tensor,
     are those names ("layer2", "denseblock3", "features.9", "layers.1",
     ...).  The tail runs with TF32 off."""
     with _trunk_scope(model):
-        outs = model(images, taps=cfg.layers)
+        outs = _trunk(model, images, taps=cfg.layers)
     with precision_scope("highest"):
-        return embed_feature_maps([outs[name] for name in cfg.layers], cfg)
+        return _tail([outs[name] for name in cfg.layers], cfg)
 
 
 def embed_xcit_features(model, images: torch.Tensor,
@@ -165,14 +189,14 @@ def embed_xcit_features(model, images: torch.Tensor,
     no CLS, so [B, N, D] reshapes straight onto the [D, G, G] grid."""
     taps = cfg.tap_indices
     with _trunk_scope(model):
-        outs = model(images, taps=taps)
+        outs = _trunk(model, images, taps=taps)
     maps = []
     for t in taps:
         b, n, d = outs[t].shape
         g = int(round(n ** 0.5))
         maps.append(outs[t].reshape(b, g, g, d).permute(0, 3, 1, 2))
     with precision_scope("highest"):
-        return embed_feature_maps(maps, cfg)
+        return _tail(maps, cfg)
 
 
 def embed_hybrid_vit_features(model, images: torch.Tensor,
@@ -181,9 +205,9 @@ def embed_hybrid_vit_features(model, images: torch.Tensor,
     token, which the shared path drops, as for a ViT."""
     taps = cfg.tap_indices
     with _trunk_scope(model):
-        outs = model(images, taps=taps)
+        outs = _trunk(model, images, taps=taps)
     with precision_scope("highest"):
-        return embed_feature_maps([outs[t] for t in taps], cfg)
+        return _tail([outs[t] for t in taps], cfg)
 
 
 # family -> embed fn (model, images, cfg, **family kwargs); a family not

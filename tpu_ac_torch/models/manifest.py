@@ -16,7 +16,9 @@ It makes two failures visible without any weights:
    before anything is installed.
 
 Regenerate after an intentional architecture change with
-``python -m tpu_ac_torch.cli.convert --update_manifests``.
+``python -m tpu_ac_torch.cli.convert --update_manifests``.  The names that
+only the port has (``registry.PORT_BACKBONES``) are frozen beside it, in
+``port_manifests.json``, so that ``manifests.json`` stays ``tpu_ac``'s.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ import numpy as np
 
 MANIFEST_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "manifests.json")
+PORT_MANIFEST_PATH = os.path.join(os.path.dirname(MANIFEST_PATH),
+                                  "port_manifests.json")
 
 
 def params_inventory(params: Mapping[str, object]) -> dict[str, list[int]]:
@@ -51,13 +55,14 @@ def generate_all(names=None) -> dict[str, dict[str, list[int]]]:
     return {name: generate_manifest(name) for name in names}
 
 
-def load_manifests() -> dict[str, dict[str, list[int]]]:
-    with open(MANIFEST_PATH) as f:
+def load_manifests(path: str = MANIFEST_PATH
+                   ) -> dict[str, dict[str, list[int]]]:
+    with open(path) as f:
         return json.load(f)
 
 
-def save_manifests(manifests: dict) -> None:
-    with open(MANIFEST_PATH, "w") as f:
+def save_manifests(manifests: dict, path: str = MANIFEST_PATH) -> None:
+    with open(path, "w") as f:
         json.dump(manifests, f, indent=0, sort_keys=True)
         f.write("\n")
 
@@ -77,7 +82,7 @@ def diff_inventory(expected: Mapping[str, list[int]],
 def verify_checkpoint(params: Mapping[str, object], backbone: str
                       ) -> dict[str, list]:
     """Diff a converted checkpoint's inventory against the frozen manifest."""
-    manifests = load_manifests()
+    manifests = {**load_manifests(), **load_manifests(PORT_MANIFEST_PATH)}
     if backbone not in manifests:
         raise KeyError(f"no frozen manifest for {backbone!r}; regenerate "
                        "with --update_manifests")

@@ -38,6 +38,7 @@ from tpu_ac_torch.models import xcit as _xcit
 from tpu_ac_torch.models.convert import load_jax_params, load_torch_checkpoint
 from tpu_ac_torch.models.vit import (
     VIT_BASE,
+    VIT_GIANT2_REG4,
     VIT_LARGE,
     VIT_SMALL,
     ViT,
@@ -191,6 +192,16 @@ for _name, _cfg, _file in (
 # the shipped registry, before any runtime register_backbone (tests
 # register tiny architectures): the frozen manifests cover exactly this set
 BUILTIN_BACKBONES = frozenset(BACKBONE_CONFIGS)
+
+# names the port has and tpu_ac has not; their inventories are frozen in
+# manifest.PORT_MANIFEST_PATH.  DINOv2 ViT-g/14 with 4 registers
+# (facebookresearch/dinov2 hub/backbones.py dinov2_vitg14_reg): the
+# release's state-dict keys, its mask_token ignored on load
+PORT_BACKBONES = {
+    "dinov2_vitg14_reg": BackboneSpec(
+        "vit", VIT_GIANT2_REG4, "dinov2_vitg14_reg4_pretrain.pth"),
+}
+BACKBONE_CONFIGS.update(PORT_BACKBONES)
 
 # family -> (module class, numpy init); a family not here is not ported
 FAMILY_MODELS = {

@@ -26,6 +26,20 @@ checkpointing of each block, which trades recompute for memory.
 ``index_selfattention``, ``last_selfattention`` and ``all_selfattentions``
 return the softmax maps (``tpu_ac``'s ``vit_*_selfattention``) in f32 with
 TF32 off, always from the dense attention.
+
+``DINOv2Config`` adds what DINOv2's ViT (facebookresearch/dinov2
+``models/vision_transformer.py``) has and DINO's has not, under the
+release's state-dict names: a SwiGLU FFN (``mlp.w12``, ``mlp.w3``;
+``layers/swiglu_ffn.py``), LayerScale on both residual branches
+(``ls1.gamma``, ``ls2.gamma``), prefix register tokens that take no
+position (``register_tokens``, inserted after CLS once the table is added),
+and the register models' resize of the position table (antialiased
+bicubic straight to the grid, in f32, no offset).  ``ViTConfig`` holds the
+same names as class attributes at DINO's values, so its fields, and
+every row of the registry that ``tpu_ac`` shares, stay DINO's.  A
+resized table is computed once a grid, dtype and device and reused until
+``pos_embed`` changes (``POS_EMBED_RESIZES`` counts the resizes), except
+while a gradient flows to it or the forward is traced.
 """
 
 from __future__ import annotations
@@ -47,6 +61,10 @@ from tpu_ac_torch.ops.interpolate import interpolate_bicubic
 from tpu_ac_torch.ops.linear import torch_linear
 from tpu_ac_torch.ops.normalize import layernorm
 
+# position tables resized since import: once a grid, dtype and device in
+# an embed (``ViT.pos_table``), every forward where a gradient reaches it
+POS_EMBED_RESIZES = 0
+
 
 @dataclasses.dataclass(frozen=True)
 class ViTConfig:
@@ -59,6 +77,28 @@ class ViTConfig:
     ln_eps: float = 1e-6
     img_size: int = 224  # pretraining image size (defines pos_embed length)
     num_prefix_tokens: int = 1  # 2 for DeiT-distilled (CLS + dist token)
+    # DINOv2's parts (``DINOv2Config`` makes them fields), at DINO's values:
+    # class attributes, not fields, so asdict() stays tpu_ac's ViTConfig
+    ffn_layer = "mlp"  # "mlp": GELU MLP; "swiglufused": DINOv2's SwiGLU
+    layerscale = False
+    num_register_tokens = 0
+    interpolate_antialias = False  # False: DINO's +0.1 bicubic resize
+
+    @property
+    def ffn_hidden(self) -> int:
+        """The FFN's hidden width: ``mlp_ratio`` of the width, or for the
+        SwiGLU two thirds of that rounded up to a multiple of 8
+        (``SwiGLUFFNFused``: 4096 at ViT-g's 1536)."""
+        hidden = int(self.embed_dim * self.mlp_ratio)
+        if self.ffn_layer == "swiglufused":
+            return (int(hidden * 2 / 3) + 7) // 8 * 8
+        return hidden
+
+    @property
+    def interpolate_offset(self) -> float:
+        """The grid offset of the table's resize: DINO's 0.1 fudge, or 0
+        for the register models, which resize to the size itself."""
+        return 0.0 if self.interpolate_antialias else 0.1
 
     @property
     def grid(self) -> int:
@@ -81,6 +121,24 @@ VIT_TINY = ViTConfig(embed_dim=192, num_heads=3)
 VIT_SMALL = ViTConfig(embed_dim=384, num_heads=6)
 VIT_BASE = ViTConfig(embed_dim=768, num_heads=12)
 VIT_LARGE = ViTConfig(embed_dim=1024, depth=24, num_heads=16)
+
+
+@dataclasses.dataclass(frozen=True)
+class DINOv2Config(ViTConfig):
+    """DINOv2's ViT: ``ViTConfig`` plus the SwiGLU FFN, LayerScale, the
+    register tokens and the antialiased resize as fields (their defaults:
+    ``dinov2_vitg14_reg``'s, hub/backbones.py)."""
+
+    patch_size: int = 14
+    img_size: int = 518
+    ffn_layer: str = "swiglufused"
+    layerscale: bool = True
+    num_register_tokens: int = 4
+    interpolate_antialias: bool = True
+
+
+# hub/backbones.py dinov2_vitg14_reg: vit_giant2, 4 registers
+VIT_GIANT2_REG4 = DINOv2Config(embed_dim=1536, depth=40, num_heads=24)
 
 
 def _trunc_normal_np(rng: np.random.Generator, shape, std=0.02, a=-2.0,
@@ -114,7 +172,14 @@ def init_vit_params(seed: int, cfg: ViTConfig) -> dict[str, np.ndarray]:
         math.sqrt(1.0 / (3 * cfg.patch_size ** 2))
     ).astype(np.float32)
     p["patch_embed.proj.bias"] = np.zeros((d,), np.float32)
-    hidden = int(d * cfg.mlp_ratio)
+    if cfg.num_register_tokens:
+        p["register_tokens"] = _trunc_normal_np(
+            rng, (1, cfg.num_register_tokens, d))
+    hidden = cfg.ffn_hidden
+    # the SwiGLU's two products, or the GELU MLP's
+    ffn = (("w12", 2 * hidden, d), ("w3", d, hidden)) \
+        if cfg.ffn_layer == "swiglufused" else \
+        (("fc1", hidden, d), ("fc2", d, hidden))
     for i in range(cfg.depth):
         pre = f"blocks.{i}."
         p[pre + "norm1.weight"] = np.ones((d,), np.float32)
@@ -126,10 +191,13 @@ def init_vit_params(seed: int, cfg: ViTConfig) -> dict[str, np.ndarray]:
         p[pre + "attn.proj.bias"] = np.zeros((d,), np.float32)
         p[pre + "norm2.weight"] = np.ones((d,), np.float32)
         p[pre + "norm2.bias"] = np.zeros((d,), np.float32)
-        p[pre + "mlp.fc1.weight"] = _trunc_normal_np(rng, (hidden, d))
-        p[pre + "mlp.fc1.bias"] = np.zeros((hidden,), np.float32)
-        p[pre + "mlp.fc2.weight"] = _trunc_normal_np(rng, (d, hidden))
-        p[pre + "mlp.fc2.bias"] = np.zeros((d,), np.float32)
+        for name, n_out, n_in in ffn:
+            p[pre + f"mlp.{name}.weight"] = _trunc_normal_np(rng,
+                                                             (n_out, n_in))
+            p[pre + f"mlp.{name}.bias"] = np.zeros((n_out,), np.float32)
+        if cfg.layerscale:  # the hub's init_values=1.0
+            p[pre + "ls1.gamma"] = np.ones((d,), np.float32)
+            p[pre + "ls2.gamma"] = np.ones((d,), np.float32)
     p["norm.weight"] = np.ones((d,), np.float32)
     p["norm.bias"] = np.zeros((d,), np.float32)
     return p
@@ -226,8 +294,32 @@ class _Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x), approximate="none"))
 
 
+class _SwiGLU(nn.Module):
+    """DINOv2's ``SwiGLUFFN``: w3(silu(a) * b), [a, b] the two halves of
+    w12(x)."""
+
+    def __init__(self, d: int, hidden: int):
+        super().__init__()
+        self.w12 = _Linear(d, 2 * hidden)
+        self.w3 = _Linear(hidden, d)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a, b = self.w12(x).chunk(2, dim=-1)
+        return self.w3(F.silu(a) * b)
+
+
+class _LayerScale(nn.Module):
+    def __init__(self, d: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.empty(d))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.gamma
+
+
 class _Block(nn.Module):
-    """One pre-LN transformer block."""
+    """One pre-LN transformer block; with ``cfg.layerscale`` each residual
+    branch is scaled per channel (``ls1``, ``ls2``) before it is added."""
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
@@ -235,7 +327,14 @@ class _Block(nn.Module):
         self.norm1 = _LayerNorm(d, cfg.ln_eps)
         self.attn = _Attention(cfg)
         self.norm2 = _LayerNorm(d, cfg.ln_eps)
-        self.mlp = _Mlp(d, int(d * cfg.mlp_ratio))
+        self.mlp = _SwiGLU(d, cfg.ffn_hidden) \
+            if cfg.ffn_layer == "swiglufused" else _Mlp(d, cfg.ffn_hidden)
+        self.ls1 = _LayerScale(d) if cfg.layerscale else None
+        self.ls2 = _LayerScale(d) if cfg.layerscale else None
+
+    @staticmethod
+    def _scaled(ls, y: torch.Tensor) -> torch.Tensor:
+        return y if ls is None else ls(y)
 
     def forward(self, x: torch.Tensor, attention_impl: str | None = None,
                 return_attention: bool = False):
@@ -244,10 +343,11 @@ class _Block(nn.Module):
         (``tpu_ac``'s ``return_attention_and_output``)."""
         if return_attention:
             attn, y = self.attn(self.norm1(x), attention_impl, True)
-            x = x + y
-            return attn, x + self.mlp(self.norm2(x))
-        x = x + self.attn(self.norm1(x), attention_impl)
-        return x + self.mlp(self.norm2(x))
+            x = x + self._scaled(self.ls1, y)
+            return attn, x + self._scaled(self.ls2, self.mlp(self.norm2(x)))
+        x = x + self._scaled(self.ls1, self.attn(self.norm1(x),
+                                                 attention_impl))
+        return x + self._scaled(self.ls2, self.mlp(self.norm2(x)))
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -274,20 +374,31 @@ def _run_block(blk: nn.Module, x: torch.Tensor,
 
 def interpolate_pos_encoding(pos_embed: torch.Tensor, npatch: int, h: int,
                              w: int, cfg: ViTConfig) -> torch.Tensor:
-    """Bicubic pos-embed resize for non-pretraining image sizes, incl. the
-    +0.1 scale fudge.  The token grid is row-major (H rows of W), so the
-    leading (row) scale comes from the image HEIGHT."""
+    """Bicubic pos-embed resize for non-pretraining image sizes: DINO's,
+    incl. the +0.1 scale fudge, through the port's torch-exact tables in
+    the table's dtype; or, with ``cfg.interpolate_antialias``, DINOv2's
+    register models', ``F.interpolate`` to the grid with antialias in f32,
+    cast back.  The token grid is row-major (H rows of W), so the leading
+    (row) scale comes from the image HEIGHT.  The prefix rows are kept as
+    they are."""
+    global POS_EMBED_RESIZES
     n_prefix = cfg.num_prefix_tokens
     n = pos_embed.shape[1] - n_prefix
     if npatch == n and w == h:
         return pos_embed
+    POS_EMBED_RESIZES += 1
     dim = pos_embed.shape[-1]
-    h0 = h // cfg.patch_size + 0.1
-    w0 = w // cfg.patch_size + 0.1
     side = int(math.sqrt(n))
     grid = pos_embed[:, n_prefix:].reshape(1, side, side, dim)
-    grid = interpolate_bicubic(grid.permute(0, 3, 1, 2),
-                               scale_factor=(h0 / side, w0 / side))
+    grid = grid.permute(0, 3, 1, 2)
+    if cfg.interpolate_antialias:
+        grid = F.interpolate(
+            grid.float(), size=(h // cfg.patch_size, w // cfg.patch_size),
+            mode="bicubic", antialias=True).to(pos_embed.dtype)
+    else:
+        h0 = h // cfg.patch_size + cfg.interpolate_offset
+        w0 = w // cfg.patch_size + cfg.interpolate_offset
+        grid = interpolate_bicubic(grid, scale_factor=(h0 / side, w0 / side))
     grid = grid.permute(0, 2, 3, 1).reshape(1, -1, dim)
     return torch.cat([pos_embed[:, :n_prefix], grid], dim=1)
 
@@ -311,24 +422,63 @@ class ViT(nn.Module):
             self.dist_token = nn.Parameter(torch.empty(1, 1, d))
         self.pos_embed = nn.Parameter(
             torch.empty(1, cfg.num_patches + cfg.num_prefix_tokens, d))
+        if cfg.num_register_tokens:
+            self.register_tokens = nn.Parameter(
+                torch.empty(1, cfg.num_register_tokens, d))
         self.patch_embed = _PatchEmbed(d, cfg.patch_size)
         self.blocks = nn.ModuleList(_Block(cfg) for _ in range(cfg.depth))
         self.norm = _LayerNorm(d, cfg.ln_eps)
+        # (grid h, grid w, dtype, device) -> (pos_embed, its storage, its
+        # version, table)
+        self._pos_tables: dict = {}
 
     def interpolate_pos_encoding(self, npatch: int, h: int,
                                  w: int) -> torch.Tensor:
         return interpolate_pos_encoding(self.pos_embed, npatch, h, w,
                                         self.cfg)
 
+    def pos_table(self, h: int, w: int) -> torch.Tensor:
+        """The position table of an h x w image: computed once for each
+        grid, dtype and device and kept while ``pos_embed`` is the same
+        tensor object, on the same storage, at the same version
+        (``load_state_dict`` and any other in-place write move the
+        version; a tensor bound in its place, as ``DINOModel.bound`` binds
+        them, is another object; ``.half()`` and ``.data =`` give it
+        another storage).  Computed anew where a gradient reaches
+        ``pos_embed`` or while the forward is traced."""
+        ps = self.cfg.patch_size
+        npatch = (h // ps) * (w // ps)
+        pe = self.pos_embed
+        if (torch.is_grad_enabled() and pe.requires_grad) or \
+                torch.compiler.is_compiling():
+            return self.interpolate_pos_encoding(npatch, h, w)
+        key = (h // ps, w // ps, pe.dtype, pe.device)
+        hit = self._pos_tables.get(key)
+        # the entry holds pe's storage, so while it stands no other
+        # storage can take that address
+        if hit is None or hit[0] is not pe or \
+                hit[1].data_ptr() != pe.data_ptr() or hit[2] != pe._version:
+            hit = (pe, pe.detach(), pe._version,
+                   self.interpolate_pos_encoding(npatch, h, w))
+            self._pos_tables[key] = hit
+        return hit[3]
+
     def prepare_tokens(self, images: torch.Tensor) -> torch.Tensor:
+        """Patch tokens after the prefix (CLS, and DeiT's dist token), the
+        position table added; DINOv2's registers then go in after the
+        prefix, with no position."""
         b, _, h, w = images.shape
         x = self.patch_embed.proj(images)
+        n_prefix = self.cfg.num_prefix_tokens
         prefix = [self.cls_token.expand(b, -1, -1)]
-        if self.cfg.num_prefix_tokens > 1:
+        if n_prefix > 1:
             prefix.append(self.dist_token.expand(b, -1, -1))
-        x = torch.cat(prefix + [x], dim=1)
-        return x + self.interpolate_pos_encoding(
-            x.shape[1] - self.cfg.num_prefix_tokens, h, w)
+        x = torch.cat(prefix + [x], dim=1) + self.pos_table(h, w)
+        if self.cfg.num_register_tokens:
+            x = torch.cat([x[:, :n_prefix],
+                           self.register_tokens.expand(b, -1, -1),
+                           x[:, n_prefix:]], dim=1)
+        return x
 
     def forward(self, images: torch.Tensor, taps: Sequence[int],
                 attention_impl: str | None = None) -> dict[int, torch.Tensor]:
